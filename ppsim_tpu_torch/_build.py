@@ -1,0 +1,124 @@
+"""Build and load the port's shared libraries at first use.
+
+Two libraries, each compiled into ``ppsim_tpu_torch/_build/`` (listed in
+``.gitignore``) under a name keyed by a hash of its sources and command, so a
+changed source rebuilds and an unchanged one loads at once:
+
+- the Hopper kernels, ``csrc/*.cu``, built with
+  ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
+  into a library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+  headers, so the build takes seconds);
+- the native initializer and checker, ``native/ppsim_native.cpp`` (unchanged
+  source of the JAX package), built with ``g++`` (:mod:`ppsim_tpu_torch.native`).
+
+Concurrent builders (test workers) each compile to a private temporary name
+and ``os.replace`` it into place, so a reader never sees a partial file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Callable, List, Optional
+
+__all__ = ["BUILD_DIR", "build_shared", "kernels", "kernel_build_log", "nvcc_path"]
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def build_shared(name: str, sources: List[str],
+                 command: Callable[[str], List[str]], timeout: float = 600.0) -> str:
+    """Compile ``sources`` with ``command(out_path)`` unless an identical
+    build exists; returns the library path. Raises RuntimeError with the
+    compiler's output on failure. The compiler's output of a successful build
+    is kept beside the library as ``<lib>.log``."""
+    h = hashlib.sha256()
+    for path in sources:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h.update(" ".join(command("OUT")).encode())
+    out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.tmp{os.getpid()}.so"
+    try:
+        proc = subprocess.run(command(tmp), capture_output=True, text=True,
+                              timeout=timeout)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {name} failed (exit {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        with open(out + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under ``$CUDA_HOME`` or
+    ``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): "
+                       "the Hopper kernels are built from csrc/ at first use")
+
+
+_kernels: Optional[ctypes.CDLL] = None
+_kernels_path: Optional[str] = None
+
+
+def kernels() -> ctypes.CDLL:
+    """The kernel library, built on first call and loaded once per process."""
+    global _kernels, _kernels_path
+    if _kernels is not None:
+        return _kernels
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    nvcc = nvcc_path()
+    path = build_shared(
+        "ppsim_kernels", sources + headers,
+        lambda out: [nvcc, *_NVCC_FLAGS, "-o", out, *sources])
+    lib = ctypes.CDLL(path)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ppsim_grid_step.argtypes = [P] * 9 + [I] * 4 + [F] * 7 + [P]
+    lib.ppsim_grid_step.restype = I
+    lib.ppsim_rebin_axes.argtypes = [P] * 16 + [I] * 7 + [F] * 2 + [P]
+    lib.ppsim_rebin_axes.restype = I
+    lib.ppsim_error_string.argtypes = [I]
+    lib.ppsim_error_string.restype = ctypes.c_char_p
+    _kernels, _kernels_path = lib, path
+    return lib
+
+
+def kernel_build_log() -> str:
+    """The compiler's output of the loaded kernel library (ptxas register and
+    spill counts under ``-Xptxas -v``)."""
+    if _kernels_path is None or not os.path.exists(_kernels_path + ".log"):
+        return ""
+    with open(_kernels_path + ".log") as f:
+        return f.read()
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise when a kernel entry point returned a CUDA error code."""
+    if err != 0:
+        msg = kernels().ppsim_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
