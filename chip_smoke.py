@@ -19,17 +19,34 @@ Phases, each printing its result and seconds on its own line:
 3. the main path at full width: n = 20,971,520, 1000 steps, rebin cadence 11,
    engine ``cuda``, unsaved, through ``harness.timed_run``; the monitors must
    pass, every pid must sit in exactly one slot of the final slab, and both
-   kernels must have launched.
+   kernels must have launched;
+4. the 3D kernels against their plain twins on the card: K3 (fused 3D step,
+   both thread mappings) allclose, K4 (x + z pass) and K5 (y pass) bitwise,
+   at the stretch geometry (n = 20,971,520, LJ: 140 x 152 x 256 bins,
+   capacity 13) on the packed slab and after 8 steps, on the padded n =
+   262,144 geometry with both laws, and K4/K5 on a 3D contention slab; times
+   at the stretch shape; K1 with the LJ law on the 2D main-path slab; the
+   ``cuda3d`` engine against the plain ``grid3d`` engine on a small run;
+5. the 3D CLI end to end: ``python -m ppsim_tpu_torch -n 262144 --ndim 3
+   --density 7e-6 --force-law lj --dt 1e-4 -s 42 --steps 200 --engine cuda3d
+   --check`` must print the summary line and a checker PASS;
+6. the stretch config at full width: n = 20,971,520, 3D LJ, 1000 steps,
+   engine ``cuda3d``, unsaved, through ``harness.timed_run``; monitors, pid
+   census, positions in the box, launch counts and a checker PASS on the
+   final frame; then a ``torch.profiler`` window of two rebin periods.
 
-The line before the last is a JSON object with each kernel's launches in the
-phase-3 run, its largest difference from the plain twin, and its time beside
-the plain twin's; the last line is ``{"ok": true, "device": {...}}``. Any
-failure raises and exits non-zero without that line. Without a CUDA device
-the script exits non-zero at once.
+The line before the last is a JSON object with each kernel's launches in its
+full-width run (phase 3 for K1 and K2, phase 6 for K3-K5), its largest
+difference from the plain twin, its time beside the plain twin's and its
+bound (the larger of its bytes over 3.35 TB/s and its operations over 67
+TFLOP/s float32, counted from this run's inputs); the last line is
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
+without that line. Without a CUDA device the script exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -46,6 +63,18 @@ SEED = 42
 # contraction move the last bits of the pair sums; accelerations reach ~1e4
 # in close encounters, so velocities carry ~1e-7 relative error.
 K1_RTOL, K1_ATOL = 1e-5, 1e-6
+# K3 parity: the same summation order and rounding as its twin; the
+# repulsive rsqrtf differs from torch.rsqrt by an ulp, which the force sums
+# carry into velocities at ~1e-7 relative.
+K3_RTOL, K3_ATOL = 1e-5, 1e-6
+# The stretch config (BASELINE.json configs[4]; README, bench/r5_*.sh).
+STRETCH = dict(num_parts=20_971_520, ndim=3, density=7e-6, force_law="lj",
+               dt=1e-4)
+STRETCH_GEOM = (140, 152, 256, 13, 8)  # ys, xs, zs, capacity, cadence
+N_PAD3 = 262_144  # 41^3 bins padded to 41 x 48 x 128, capacity 10
+# One NVIDIA H100 SXM (the on-chip-measurement guide's table, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -103,11 +132,32 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def k1_compare(name, slab, geom, cfg) -> float:
+def bound_of(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the least time for the work on one H100."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def candidate_pairs(pid) -> int:
+    """Unordered pairs of live particles in neighbouring bins (3x3 in 2D,
+    3x3x3 in 3D, the own bin included): the distance tests a step needs
+    at least, counted from this slab."""
+    import torch
+
+    n = (pid >= 0).sum(dim=0, dtype=torch.int64)
+    padded = torch.nn.functional.pad(n, (1, 1) * n.dim())
+    near = torch.zeros_like(n)
+    for off in itertools.product(range(3), repeat=n.dim()):
+        near += padded[tuple(slice(o, o + m) for o, m in zip(off, n.shape))]
+    return int(((n * near).sum() - n.sum()) // 2)
+
+
+def k1_compare(name, slab, geom, cfg, law="repulsive", law_params=()) -> float:
     from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda, grid_step_plain
 
     args = (slab.xl, slab.yl, slab.vx, slab.vy, geom, cfg.cutoff, cfg.min_r,
-            cfg.mass, cfg.dt, cfg.size)
+            cfg.mass, cfg.dt, cfg.size, law, law_params)
     got = grid_step_cuda(*args)
     want = grid_step_plain(*args)
     errs = [assert_close(f"K1 {name} {p}", g, w, K1_RTOL, K1_ATOL)
@@ -135,6 +185,273 @@ def k2_compare(name, slab, geom, evac) -> None:
         f"slots changed {moved}; monitors (max_occ, dropped, deferred) {mon}")
 
 
+def k3_compare(name, slab, geom, cfg) -> float:
+    """K3 (both thread mappings) against its plain twin; returns the max
+    abs difference."""
+    from ppsim_tpu_torch.ops.cuda_grid3 import VARIANTS, grid3_step_cuda, grid3_step_plain
+
+    args = (*slab[:6], geom, cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt,
+            cfg.size, cfg.force_law, cfg.law_params)
+    want = grid3_step_plain(*args)
+    worst = 0.0
+    for variant in sorted(VARIANTS):
+        got = grid3_step_cuda(*args, variant=variant)
+        errs = [assert_close(f"K3 {name} {variant} {p}", g, w, K3_RTOL, K3_ATOL)
+                for p, g, w in zip(("xl", "yl", "zl", "vx", "vy", "vz",
+                                    "speed2"), got, want)]
+        worst = max(worst, *errs)
+        log(f"  K3 {name} ({variant}, {cfg.force_law}): allclose (rtol "
+            f"{K3_RTOL:g}, atol {K3_ATOL:g}); max abs diff "
+            + " ".join(f"{e:.3e}" for e in errs))
+    del want
+    return worst
+
+
+def k45_compare(name, slab, geom, evac) -> None:
+    """K4 then K5 against their plain twins, bitwise on all planes."""
+    from ppsim_tpu_torch.ops.cuda_rebin3 import (
+        ALIVE_PRE, FAR_PRE, rebin3_inplane_cuda, rebin3_inplane_plain,
+        rebin3_ypass_cuda, rebin3_ypass_plain,
+    )
+    from ppsim_tpu_torch.ops.grid3d_ops import rebin3_monitors
+
+    mid, cnt = rebin3_inplane_cuda(slab, geom, evac)
+    wmid, wcnt = rebin3_inplane_plain(slab, geom, evac)
+    for f, g, w in zip(mid._fields, mid, wmid):
+        assert_equal(f"K4 {name} {f}", g, w)
+    assert_equal(f"K4 {name} count planes", cnt, wcnt)
+    del wmid
+    out, post = rebin3_ypass_cuda(mid, cnt, geom, evac)
+    wout, wpost = rebin3_ypass_plain(mid, cnt, geom, evac)
+    for f, g, w in zip(out._fields, out, wout):
+        assert_equal(f"K5 {name} {f}", g, w)
+    assert_equal(f"K5 {name} post planes", post, wpost)
+    mon = [int(v) for v in rebin3_monitors(cnt[FAR_PRE], cnt[ALIVE_PRE], post)]
+    moved = int((out.pid != slab.pid).sum())
+    log(f"  K4+K5 {name}: bitwise equal on 7 planes + 5 count planes + 2 "
+        f"post planes; slots changed {moved}; monitors (max_occ, dropped, "
+        f"deferred) {mon}")
+
+
+def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
+    """Phases 4-6: the 3D kernels against their twins, the 3D CLI, and the
+    stretch config at full width. Fills the K3-K5 records of ``kernels``."""
+    import torch
+
+    from ppsim_tpu_torch.checker import ABSAVG_BAND, ABSMIN_BAND, frame_distance_stats
+    from ppsim_tpu_torch.config import SimConfig
+    from ppsim_tpu_torch.engines import get_engine
+    from ppsim_tpu_torch.harness import timed_run
+    from ppsim_tpu_torch.initlib import init_particles
+    from ppsim_tpu_torch.ops.cuda_grid3 import (
+        DEFAULT_VARIANT, VARIANTS, grid3_step_cuda, grid3_step_plain,
+    )
+    from ppsim_tpu_torch.ops.cuda_rebin3 import (
+        rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_ypass_cuda,
+        rebin3_ypass_plain,
+    )
+    from ppsim_tpu_torch.profiling import profile_steps
+    from ppsim_tpu_torch.testing import STRESS_GEOMETRY3, stress_slab3
+
+    dev = torch.device("cuda", 0)
+    k3, k4, k5 = (kernels[k] for k in ("grid3_step", "rebin3_inplane",
+                                       "rebin3_ypass"))
+
+    # ---- phase 4: the 3D kernels against their plain twins ---------------
+    t0 = time.perf_counter()
+    cfg3 = SimConfig(**STRETCH)
+    eng3 = get_engine("cuda3d", cfg3, device=dev)
+    g3, evac = eng3.geom, cfg3.evac_capacity
+    log(f"  stretch geometry: {g3.ys}x{g3.xs}x{g3.zs} bins (array "
+        f"{g3.ys_pad}x{g3.xs_pad}x{g3.zs_pad}), capacity {g3.capacity}, "
+        f"cadence {eng3.rebin_every}, bin sides y {g3.bsy:.6g} x "
+        f"{g3.bsx:.6g} z {g3.bsz:.6g}")
+    if (g3.ys, g3.xs, g3.zs, g3.capacity, eng3.rebin_every) != STRETCH_GEOM:
+        raise AssertionError(f"unexpected stretch geometry {g3}")
+    ti = time.perf_counter()
+    state3 = init_particles(cfg3, seed=SEED, method="fast", device=dev)
+    torch.cuda.synchronize()
+    log(f"init_particles fast 3D (n={cfg3.num_parts}, seed={SEED}): "
+        f"{time.perf_counter() - ti:.2f} s")
+    carry = eng3.init_carry(state3)
+    err3 = k3_compare("stretch packed slab", carry.slab, g3, cfg3)
+    for _ in range(eng3.rebin_every):
+        carry = eng3.step_plain(carry)
+    slab8 = carry.slab
+    del carry
+    err3 = max(err3, k3_compare(f"stretch after {eng3.rebin_every} steps",
+                                slab8, g3, cfg3))
+    k45_compare(f"stretch after {eng3.rebin_every} steps", slab8, g3, evac)
+
+    for law_kw in ({}, dict(force_law="lj", dt=1e-4)):
+        cfg_p = SimConfig(num_parts=N_PAD3, ndim=3, density=7e-6, **law_kw)
+        eng_p = get_engine("cuda3d", cfg_p, device=dev)
+        gp = eng_p.geom
+        log(f"  padded geometry ({cfg_p.force_law}): {gp.ys}x{gp.xs}x{gp.zs} "
+            f"in {gp.ys_pad}x{gp.xs_pad}x{gp.zs_pad}, capacity {gp.capacity}")
+        carry = eng_p.init_carry(init_particles(cfg_p, seed=SEED,
+                                                method="fast", device=dev))
+        for _ in range(eng_p.rebin_every):
+            carry = eng_p.step_plain(carry)
+        err3 = max(err3, k3_compare(f"padded {gp.shape}", carry.slab, gp, cfg_p))
+        k45_compare(f"padded ({cfg_p.force_law})", carry.slab, gp,
+                    cfg_p.evac_capacity)
+    gs = STRESS_GEOMETRY3
+    k45_compare("contention slab", stress_slab3(gs, 0, 2, dev), gs, 2)
+    k3["max_abs_err"] = err3
+    k4["max_abs_err"] = k5["max_abs_err"] = 0.0
+
+    # K1 with the LJ law on the 2D main-path slab
+    eng2 = get_engine("cuda", cfg2d, device=dev)
+    carry = eng2.init_carry(state2d)
+    for _ in range(CADENCE_MAIN):
+        carry = eng2.step_plain(carry)
+    lj2 = cfg2d.with_(force_law="lj", dt=1e-4)
+    e1 = k1_compare(f"LJ, 2D main-path slab after {CADENCE_MAIN} steps",
+                    carry.slab, eng2.geom, lj2, "lj", lj2.law_params)
+    kernels["grid_step"]["max_abs_err"] = max(kernels["grid_step"]["max_abs_err"], e1)
+    del eng2, carry
+
+    # the cuda3d engine against the plain grid3d engine on a small run
+    for law_kw in ({}, dict(force_law="lj", dt=1e-4)):
+        cfg_s = SimConfig(num_parts=500, ndim=3, density=7e-6, grid3_capacity=8,
+                          evac_capacity=2, rebin3_every=4, **law_kw)
+        st_s = init_particles(cfg_s, seed=SEED, method="fast", device=dev)
+        ra = get_engine("cuda3d", cfg_s, device=dev).run(st_s, nsteps=24)
+        rb = get_engine("grid3d", cfg_s, device=dev).run(st_s, nsteps=24)
+        e_pos = assert_close(f"engine cuda3d vs grid3d pos ({cfg_s.force_law})",
+                             ra.state.pos, rb.state.pos, 0.0, 1e-5)
+        if [int(v) for v in ra.monitors[:2]] != [int(v) for v in rb.monitors[:2]]:
+            raise AssertionError(f"monitors differ: {ra.monitors} vs {rb.monitors}")
+        log(f"  engine cuda3d vs grid3d ({cfg_s.force_law}), n=500, 24 steps: "
+            f"positions max abs diff {e_pos:.3e}; max_bin_count "
+            f"{int(ra.monitors.max_bin_count)}")
+
+    # times at the stretch shape: plain, kernel, kernel, plain
+    a3 = (*slab8[:6], g3, cfg3.cutoff, cfg3.min_r, cfg3.mass, cfg3.dt,
+          cfg3.size, cfg3.force_law, cfg3.law_params)
+    mid, cnt = rebin3_inplane_cuda(slab8, g3, evac)
+    plain = {"k3": [], "k4": [], "k5": []}
+    kern = {**{f"k3 {v}": [] for v in VARIANTS}, "k4": [], "k5": []}
+    for rnd in range(2):
+        if rnd == 0:
+            plain["k3"].append(cuda_ms(lambda: grid3_step_plain(*a3), 1))
+            plain["k4"].append(cuda_ms(lambda: rebin3_inplane_plain(slab8, g3, evac), 1))
+            plain["k5"].append(cuda_ms(lambda: rebin3_ypass_plain(mid, cnt, g3, evac), 1))
+        for v in VARIANTS:
+            kern[f"k3 {v}"].append(cuda_ms(lambda v=v: grid3_step_cuda(*a3, variant=v), 10))
+        kern["k4"].append(cuda_ms(lambda: rebin3_inplane_cuda(slab8, g3, evac), 10))
+        kern["k5"].append(cuda_ms(lambda: rebin3_ypass_cuda(mid, cnt, g3, evac), 10))
+        if rnd == 1:
+            plain["k3"].append(cuda_ms(lambda: grid3_step_plain(*a3), 1))
+            plain["k4"].append(cuda_ms(lambda: rebin3_inplane_plain(slab8, g3, evac), 1))
+            plain["k5"].append(cuda_ms(lambda: rebin3_ypass_plain(mid, cnt, g3, evac), 1))
+    # bounds on this slab: K3 reads 6 planes and writes 6 + the speed plane
+    # and makes at least 8 flops (3 sub, 3 mul, 2 add) per candidate pair;
+    # K4 reads 7 planes and writes 7 + 5 count planes; K5 reads 7 planes +
+    # 2 count planes and writes 7 + 2 post planes
+    plane_b = 4 * slab8.xl.numel()
+    bin_b = plane_b // g3.capacity
+    pairs3 = candidate_pairs(slab8.pid)
+    for rec, key, nbytes, flops in (
+            (k3, f"k3 {DEFAULT_VARIANT}", 12 * plane_b + bin_b, 8 * pairs3),
+            (k4, "k4", 14 * plane_b + 5 * bin_b, 0),
+            (k5, "k5", 14 * plane_b + 4 * bin_b, 0)):
+        bound, by = bound_of(nbytes, flops)
+        rec.update(ms=min(kern[key]), plain_ms=min(plain[key.split()[0]]),
+                   bound_ms=bound, bound_by=by)
+    log(f"  times at {g3.ys}x{g3.xs}x{g3.zs} cap {g3.capacity} (ms/call; "
+        f"{smi}): " + "; ".join(f"{k} {' '.join(f'{t:.4f}' for t in v)}"
+                                 for k, v in kern.items())
+        + "; plain " + "; ".join(f"{k} {' '.join(f'{t:.3f}' for t in v)}"
+                                 for k, v in plain.items()))
+    log(f"  bounds: K3 {k3['bound_ms']:.4f} ms ({k3['bound_by']}; {pairs3} "
+        f"candidate pairs), K4 {k4['bound_ms']:.4f} ms, K5 "
+        f"{k5['bound_ms']:.4f} ms (bytes)")
+    del slab8, mid, cnt, a3, eng3
+    torch.cuda.empty_cache()
+    phase_line("4", "3D kernels agree with their plain twins", t0)
+
+    # ---- phase 5: the 3D CLI end to end ----------------------------------
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "ppsim_tpu_torch", "-n", str(N_PAD3),
+           "--ndim", "3", "--density", "7e-6", "--force-law", "lj", "--dt",
+           "1e-4", "-s", str(SEED), "--steps", "200", "--engine", "cuda3d",
+           "--check"]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    for line in (proc.stdout + proc.stderr).strip().splitlines():
+        log(f"  cli: {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"3D CLI exited {proc.returncode}")
+    if "Simulation Time = " not in proc.stdout:
+        raise RuntimeError("3D CLI printed no summary line")
+    if "Correctness check: PASS" not in proc.stdout:
+        raise RuntimeError("3D CLI checker did not PASS")
+    phase_line("5", "3D CLI --check PASS", t0)
+
+    # ---- phase 6: the stretch config at full width ------------------------
+    t0 = time.perf_counter()
+    n3 = cfg3.num_parts
+    engine = get_engine("cuda3d", cfg3, device=dev)
+    for rec in (k3, k4, k5):
+        rec["wrapper"].launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    result, seconds = timed_run(engine, state3, STEPS_MAIN, 0)
+    for rec in (k3, k4, k5):
+        rec["launches"] = rec["wrapper"].launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    engine.check(result)
+    slab = result.carry.slab
+    pids = slab.pid[slab.pid >= 0].long()
+    hist = torch.bincount(pids, minlength=n3)
+    if pids.numel() != n3 or hist.numel() != n3 or int(hist.max()) != 1:
+        raise AssertionError(
+            f"pid census: {pids.numel()} live slots, max multiplicity "
+            f"{int(hist.max())}, expected each of {n3} once")
+    pos = result.state.pos
+    if pos.shape != (n3, 3) or not bool(torch.isfinite(pos).all()):
+        raise AssertionError("final positions not finite (N, 3)")
+    lo, hi = float(pos.min()), float(pos.max())
+    if lo < -cfg3.size * 2.0**-21 or hi > cfg3.size * (1 + 2.0**-21):
+        raise AssertionError(f"final positions [{lo}, {hi}] outside the "
+                             f"box [0, {cfg3.size}]")
+    cadence = engine.rebin_every
+    if (k3["launches"] < STEPS_MAIN + cadence
+            or min(k4["launches"], k5["launches"]) < STEPS_MAIN // cadence + 1):
+        raise AssertionError(f"launch counts {k3['launches']}, "
+                             f"{k4['launches']}, {k5['launches']} below the "
+                             "schedule")
+    tc = time.perf_counter()
+    dmin, dsum, dcount = frame_distance_stats(pos.cpu().numpy(), cfg3.cutoff)
+    absavg = dsum / dcount if dcount else float("inf")
+    cut = cfg3.cutoff
+    verdict = dmin > ABSMIN_BAND * cut and absavg > ABSAVG_BAND * cut
+    log(f"  checker on the final frame ({time.perf_counter() - tc:.1f} s): "
+        f"{'PASS' if verdict else 'FAIL'} absmin {dmin:.6g} "
+        f"({dmin / cut:.2f} cutoff), absavg {absavg:.6g} ({absavg / cut:.2f} "
+        f"cutoff), {dcount} interacting pairs")
+    if not verdict:
+        raise AssertionError("checker failed on the stretch config's final frame")
+    m = result.monitors
+    log(f"  n={n3} 3D LJ steps={STEPS_MAIN} rebin_every={cadence} "
+        f"capacity={engine.capacity}: {seconds:.4f} s = "
+        f"{n3 * STEPS_MAIN / seconds / 1e6:.2f} M particle-steps/s ({smi})")
+    log(f"  monitors: max_bin_count {int(m.max_bin_count)} dropped "
+        f"{int(m.migrate_dropped)} max_speed {float(m.max_speed):.4f} "
+        f"deferred {int(m.deferred)}")
+    log(f"  peak device memory: {peak} bytes")
+    log(f"  launches: grid3_step {k3['launches']} (schedule {STEPS_MAIN} + "
+        f"{cadence} warm-up), rebin3_inplane {k4['launches']}, rebin3_ypass "
+        f"{k5['launches']} (schedule {STEPS_MAIN // cadence} + 1 warm-up)")
+    log(f"  every pid 0..{n3 - 1} in exactly one slot")
+    _, win = profile_steps(engine, result.carry, STEPS_MAIN + 1, 2 * cadence)
+    log(f"  torch.profiler, steps {win.steps.start}-{win.steps.stop - 1}:")
+    for line in win.table().splitlines():
+        log(f"    {line}")
+    phase_line("6", "stretch config at full width clean", t0)
+
+
 def main() -> int:
     import torch
 
@@ -152,19 +469,30 @@ def main() -> int:
     from ppsim_tpu_torch.ops.cuda_rebin import (
         rebin_axes_call_cuda, rebin_axes_call_plain,
     )
+    from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda
+    from ppsim_tpu_torch.ops.cuda_rebin3 import rebin3_inplane_cuda, rebin3_ypass_cuda
     from ppsim_tpu_torch.testing import STRESS_GEOMETRY, stress_slab
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+
+    def entry(name, source, replaces, wrapper):
+        return {"name": name, "route": "cuda",
+                "source": f"ppsim_tpu_torch/csrc/{source}",
+                "replaces": f"ppsim_tpu/ops/{replaces}", "library_ms": None,
+                "wrapper": wrapper}
+
     kernels = {
-        "grid_step": {"name": "grid_step", "route": "cuda",
-                      "source": "ppsim_tpu_torch/csrc/grid_step.cu",
-                      "replaces": "ppsim_tpu/ops/pallas_grid.py:340",
-                      "wrapper": grid_step_cuda},
-        "rebin_axes": {"name": "rebin_axes", "route": "cuda",
-                       "source": "ppsim_tpu_torch/csrc/rebin_axes.cu",
-                       "replaces": "ppsim_tpu/ops/pallas_rebin.py:370",
-                       "wrapper": rebin_axes_call_cuda},
+        "grid_step": entry("grid_step", "grid_step.cu", "pallas_grid.py:340",
+                           grid_step_cuda),
+        "rebin_axes": entry("rebin_axes", "rebin_axes.cu",
+                            "pallas_rebin.py:370", rebin_axes_call_cuda),
+        "grid3_step": entry("grid3_step", "grid3_step.cu",
+                            "pallas_grid3d.py:42", grid3_step_cuda),
+        "rebin3_inplane": entry("rebin3_inplane", "rebin3.cu",
+                                "pallas_rebin3.py:272", rebin3_inplane_cuda),
+        "rebin3_ypass": entry("rebin3_ypass", "rebin3.cu",
+                              "pallas_rebin3.py:284", rebin3_ypass_cuda),
     }
 
     # ---- phase 0: the card and the build ---------------------------------
@@ -239,6 +567,17 @@ def main() -> int:
     log(f"  times at 1664x1664 cap 14 (ms/call; {smi}): K1 {k1a:.4f} "
         f"{k1b:.4f} vs plain {p1:.3f} {p1b:.3f}; K2 {k2a:.4f} {k2b:.4f} "
         f"vs plain {p2:.3f} {p2b:.3f}")
+    # bounds on this slab: K1 reads 4 planes and writes 4 + the speed plane,
+    # and makes at least 5 flops (2 sub, 2 mul, 1 add) per candidate pair;
+    # K2 reads 5 planes and writes 5 + 4 count planes
+    plane_b = 4 * slab11.xl.numel()
+    pairs2 = candidate_pairs(slab11.pid)
+    b1, by1 = bound_of(8 * plane_b + plane_b // geom.capacity, 5 * pairs2)
+    b2, by2 = bound_of(10 * plane_b + 4 * plane_b // geom.capacity, 0)
+    kernels["grid_step"].update(bound_ms=b1, bound_by=by1)
+    kernels["rebin_axes"].update(bound_ms=b2, bound_by=by2)
+    log(f"  bounds: K1 {b1:.4f} ms ({by1}; {pairs2} candidate pairs), "
+        f"K2 {b2:.4f} ms ({by2})")
     del slab0, slab11, k1_args, k2_args, eng
 
     # the cuda engine against the plain grid engine on a small run
@@ -317,6 +656,10 @@ def main() -> int:
         f"{STEPS_MAIN // CADENCE_MAIN} + 1 warm-up)")
     log(f"  every pid 0..{N_MAIN - 1} in exactly one slot")
     phase_line("3", "full-width main path clean", t0)
+
+    del result, engine, slab, pids, hist, pos
+    torch.cuda.empty_cache()
+    phase_3d(kernels, state, cfg, smi)
 
     out = [{k: v for k, v in rec.items() if k != "wrapper"}
            for rec in kernels.values()]

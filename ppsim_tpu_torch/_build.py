@@ -4,9 +4,10 @@ Two libraries, each compiled into ``ppsim_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name keyed by a hash of its sources and command, so a
 changed source rebuilds and an unchanged one loads at once:
 
-- the Hopper kernels, ``csrc/*.cu``, built with
-  ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-  into a library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+- the Hopper kernels, ``csrc/*.cu``, each compiled with
+  ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC -c``
+  (one compiler process per source, all started together) and linked into
+  one library with a plain C interface, loaded with ``ctypes`` (no PyTorch
   headers, so the build takes seconds);
 - the native initializer and checker, ``native/ppsim_native.cpp`` (unchanged
   source of the JAX package), built with ``g++`` (:mod:`ppsim_tpu_torch.native`).
@@ -23,7 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Union
 
 __all__ = ["BUILD_DIR", "build_shared", "kernels", "kernel_build_log", "nvcc_path"]
 
@@ -32,38 +33,67 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+Command = Callable[[str], Union[List[str], List[List[str]]]]
 
 
-def build_shared(name: str, sources: List[str],
-                 command: Callable[[str], List[str]], timeout: float = 600.0) -> str:
-    """Compile ``sources`` with ``command(out_path)`` unless an identical
-    build exists; returns the library path. Raises RuntimeError with the
-    compiler's output on failure. The compiler's output of a successful build
-    is kept beside the library as ``<lib>.log``."""
+def _run_all(commands: List[List[str]], timeout: float):
+    """Start every command at once and wait for all; returns
+    ``[(argv, returncode, output), ...]``."""
+    procs = [(argv, subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))
+             for argv in commands]
+    results = []
+    try:
+        for argv, proc in procs:
+            out, _ = proc.communicate(timeout=timeout)
+            results.append((argv, proc.returncode, out))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+def build_shared(name: str, sources: List[str], command: Command,
+                 timeout: float = 600.0) -> str:
+    """Build ``sources`` with ``command(out_path)`` unless an identical
+    build exists; returns the library path. ``command`` gives one argv, or a
+    list of argvs whose last one links: the others run first, all started
+    together, and may write files named ``out_path + "." + anything``.
+    Raises RuntimeError with the compiler's output on failure. The compiler's
+    output of a successful build is kept beside the library as ``<lib>.log``."""
+    def steps(out_path):
+        cmd = command(out_path)
+        return [cmd] if isinstance(cmd[0], str) else cmd
+
     h = hashlib.sha256()
     for path in sources:
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
-    h.update(" ".join(command("OUT")).encode())
+    h.update(repr(steps("OUT")).encode())
     out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}.so"
     try:
-        proc = subprocess.run(command(tmp), capture_output=True, text=True,
-                              timeout=timeout)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {name} failed (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}")
+        *parallel, link = steps(tmp)
+        log = []
+        for group in (parallel, [link]):
+            for argv, rc, text in _run_all(group, timeout):
+                log.append(text)
+                if rc != 0:
+                    raise RuntimeError(f"building {name} failed (exit {rc}): "
+                                       f"{' '.join(argv)}\n{text}")
         with open(out + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write("".join(log))
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for path in glob.glob(glob.escape(tmp) + "*"):
+            os.remove(path)
     return out
 
 
@@ -93,15 +123,24 @@ def kernels() -> ctypes.CDLL:
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     nvcc = nvcc_path()
-    path = build_shared(
-        "ppsim_kernels", sources + headers,
-        lambda out: [nvcc, *_NVCC_FLAGS, "-o", out, *sources])
+
+    def command(out):
+        objs = [f"{out}.{os.path.basename(src)}.o" for src in sources]
+        return [[nvcc, *_NVCC_FLAGS, "-c", src, "-o", obj]
+                for src, obj in zip(sources, objs)] + [
+                    [nvcc, "-shared", "-o", out, *objs]]
+
+    path = build_shared("ppsim_kernels", sources + headers, command)
     lib = ctypes.CDLL(path)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ppsim_grid_step.argtypes = [P] * 9 + [I] * 4 + [F] * 7 + [P]
-    lib.ppsim_grid_step.restype = I
-    lib.ppsim_rebin_axes.argtypes = [P] * 16 + [I] * 7 + [F] * 2 + [P]
-    lib.ppsim_rebin_axes.restype = I
+    for fn, types in (
+            (lib.ppsim_grid_step, [P] * 9 + [I] * 5 + [F] * 10 + [P]),
+            (lib.ppsim_rebin_axes, [P] * 16 + [I] * 7 + [F] * 2 + [P]),
+            (lib.ppsim_grid3_step, [P] * 13 + [I] * 9 + [F] * 12 + [P]),
+            (lib.ppsim_rebin3_inplane, [P] * 22 + [I] * 9 + [F] * 5 + [P]),
+            (lib.ppsim_rebin3_ypass, [P] * 16 + [I] * 9 + [F] * 4 + [P])):
+        fn.argtypes = types
+        fn.restype = I
     lib.ppsim_error_string.argtypes = [I]
     lib.ppsim_error_string.restype = ctypes.c_char_p
     _kernels, _kernels_path = lib, path

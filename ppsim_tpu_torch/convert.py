@@ -13,10 +13,12 @@ import numpy as np
 import torch
 
 from ppsim_tpu_torch.config import SimConfig
+from ppsim_tpu_torch.ops.grid3d_ops import Slab3State
 from ppsim_tpu_torch.ops.grid_ops import SlabState
 from ppsim_tpu_torch.state import ParticleState, make_state
 
-__all__ = ["config_from_dict", "particle_state_from_numpy", "slab_state_from_numpy"]
+__all__ = ["config_from_dict", "particle_state_from_numpy", "slab_state_from_numpy",
+           "slab3_state_from_numpy"]
 
 
 def config_from_dict(fields: dict) -> SimConfig:
@@ -29,7 +31,7 @@ def config_from_dict(fields: dict) -> SimConfig:
 
 
 def particle_state_from_numpy(pos, vel, device="cpu") -> ParticleState:
-    """float32 ParticleState from (N, 2) arrays."""
+    """float32 ParticleState from (N, 2) or (N, 3) arrays."""
     return make_state(np.asarray(pos), np.asarray(vel), dtype=torch.float32,
                       device=device)
 
@@ -39,3 +41,11 @@ def slab_state_from_numpy(xl, yl, vx, vy, pid, device="cpu") -> SlabState:
     f = lambda a, dt: torch.tensor(np.array(a, dt), device=device)  # noqa: E731
     return SlabState(*(f(a, np.float32) for a in (xl, yl, vx, vy)),
                      f(pid, np.int32))
+
+
+def slab3_state_from_numpy(xl, yl, zl, vx, vy, vz, pid, device="cpu") -> Slab3State:
+    """Slab3State from (cap, Y, X, Z) arrays (the JAX package's Slab3State
+    as numpy): float32 fields, int32 pid."""
+    f = lambda a, dt: torch.tensor(np.array(a, dt), device=device)  # noqa: E731
+    return Slab3State(*(f(a, np.float32) for a in (xl, yl, zl, vx, vy, vz)),
+                      f(pid, np.int32))

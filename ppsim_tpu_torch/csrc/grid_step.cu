@@ -27,11 +27,15 @@
 // one saving taken here. Newton-3 halving and per-bin occupancy bounds are
 // later work.
 //
+// Force law. The pair coefficient comes from pair_coef.cuh, a template
+// parameter: the repulsive law (the default) or truncated Lennard-Jones.
+//
 // Numerics. Constants arrive as the float32 values the JAX package rounds
-// (c2 = f32(cutoff^2), mr2 = f32(min_r^2), inv_mass = f32(1/mass)). The pair
-// coefficient uses grid_ops.pair_coef's op order. rsqrtf differs from the CPU
-// rsqrt by an ulp or two and FMA contraction changes the last bit of the pair
-// sums, so parity with the plain twin is allclose. The move tail uses
+// (c2 = f32(cutoff^2), mr2 = f32(min_r^2), inv_mass = f32(1/mass)). The
+// repulsive coefficient uses grid_ops.pair_coef's op order, LJ
+// physics.lj_coef_from_r2's. rsqrtf differs from the CPU rsqrt by an ulp or
+// two and FMA contraction changes the last bit of the pair sums, so parity
+// with the plain twin is allclose. The move tail uses
 // explicitly rounded ops (no contraction) and the floored modulo of jnp.mod:
 // fmodf (exact) with the sign fix, which is bit-identical to jnp.mod and
 // torch.remainder for the multi-bounce fold.
@@ -39,37 +43,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pair_coef.cuh"
+#include "wall_fold.cuh"
+
 namespace {
+
+using ppsim::Law;
+using ppsim::PairParams;
+using ppsim::wall_fold;
 
 constexpr float kBig = 1.0e9f;
 
-__device__ __forceinline__ float floored_mod(float x, float m) {
-  float r = fmodf(x, m);
-  if (r != 0.0f && r < 0.0f) r += m;
-  return r;
-}
-
-// Fold the global coordinate local+off into [0, L] (out-of-box slots only),
-// flipping v on odd reflections; grid_ops._reflect.
-__device__ __forceinline__ void wall_fold(float& local, float& v, float off,
-                                          float L, float twoL) {
-  const float g = __fadd_rn(local, off);
-  if (g < 0.0f || g > L) {
-    const float m = floored_mod(g, twoL);
-    local = __fsub_rn(__fsub_rn(L, fabsf(__fsub_rn(m, L))), off);
-    if (m > L) v = -v;
-  }
-}
-
-template <int MAXC>
+template <int MAXC, Law LAW>
 __global__ void __launch_bounds__(128)
 grid_step_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
                  const float* __restrict__ vx, const float* __restrict__ vy,
                  float* __restrict__ xo, float* __restrict__ yo,
                  float* __restrict__ vxo, float* __restrict__ vyo,
                  float* __restrict__ sp, int cap, int R, int C, float bs,
-                 float c2, float cutoff, float mr2, float inv_mass, float dt,
-                 float L) {
+                 PairParams pp, float dt, float L) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y;
   if (c >= C) return;
@@ -106,10 +98,8 @@ grid_step_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
             const float dx = __fsub_rn(xno, sx[s]);
             const float dy = __fsub_rn(yno, sy[s]);
             const float r2 = dx * dx + dy * dy;
-            if (r2 <= c2) {
-              const float rinv = rsqrtf(fmaxf(r2, mr2));
-              const float inv2 = rinv * rinv;
-              const float coef = (inv2 - cutoff * rinv * inv2) * inv_mass;
+            if (r2 <= pp.c2) {
+              const float coef = ppsim::pair_coef<LAW>(r2, pp);
               ax[s] += coef * dx;
               ay[s] += coef * dy;
             }
@@ -146,43 +136,59 @@ grid_step_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
   sp[b] = spmax;
 }
 
-template <int MAXC>
+template <int MAXC, Law LAW>
 void launch(const float* xl, const float* yl, const float* vx, const float* vy,
             float* xo, float* yo, float* vxo, float* vyo, float* sp, int cap,
-            int R, int C, float bs, float c2, float cutoff, float mr2,
-            float inv_mass, float dt, float L, cudaStream_t stream) {
+            int R, int C, float bs, const PairParams& pp, float dt, float L,
+            cudaStream_t stream) {
   const dim3 block(128);
   const dim3 grid((C + block.x - 1) / block.x, R);
-  grid_step_kernel<MAXC><<<grid, block, 0, stream>>>(
-      xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, c2, cutoff, mr2,
-      inv_mass, dt, L);
+  grid_step_kernel<MAXC, LAW><<<grid, block, 0, stream>>>(
+      xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, pp, dt, L);
+}
+
+template <Law LAW>
+int launch_law(const float* xl, const float* yl, const float* vx,
+               const float* vy, float* xo, float* yo, float* vxo, float* vyo,
+               float* sp, int cap, int R, int C, float bs,
+               const PairParams& pp, float dt, float L, cudaStream_t s) {
+  if (cap <= 8)
+    launch<8, LAW>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, pp,
+                   dt, L, s);
+  else if (cap <= 16)
+    launch<16, LAW>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, pp,
+                    dt, L, s);
+  else if (cap <= 32)
+    launch<32, LAW>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, pp,
+                    dt, L, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = launched). cap <= 32.
+// law 0 = repulsive, 1 = Lennard-Jones (pair_coef.cuh). Returns
+// cudaGetLastError() after the launch (0 = launched). cap <= 32.
 int ppsim_grid_step(const float* xl, const float* yl, const float* vx,
                     const float* vy, float* xo, float* yo, float* vxo,
                     float* vyo, float* sp, int device, int cap, int R, int C,
-                    float bs, float c2, float cutoff, float mr2,
-                    float inv_mass, float dt, float L, void* stream) {
+                    int law, float bs, float c2, float cutoff, float mr2,
+                    float inv_mass, float sig2, float lj_k, float mass,
+                    float dt, float L, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (cap <= 8)
-    launch<8>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, c2, cutoff,
-              mr2, inv_mass, dt, L, s);
-  else if (cap <= 16)
-    launch<16>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, c2, cutoff,
-               mr2, inv_mass, dt, L, s);
-  else if (cap <= 32)
-    launch<32>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, c2, cutoff,
-               mr2, inv_mass, dt, L, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
+  if (law == (int)Law::kRepulsive)
+    return launch_law<Law::kRepulsive>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp,
+                                       cap, R, C, bs, pp, dt, L, s);
+  if (law == (int)Law::kLJ)
+    return launch_law<Law::kLJ>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R,
+                                C, bs, pp, dt, L, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* ppsim_error_string(int err) {

@@ -74,7 +74,7 @@ class Monitors(NamedTuple):
 
 class RunResult(NamedTuple):
     state: ParticleState  # final state, id order (device tensors)
-    frames: Optional[np.ndarray]  # (F, N, 2) saved positions, id order
+    frames: Optional[np.ndarray]  # (F, N, ndim) saved positions, id order
     monitors: Monitors  # host-side values
     carry: Any = None  # the engine's final carry (e.g. the slab), device-side
 
@@ -110,12 +110,13 @@ class Engine:
     name: str = "base"
     supported_ndim = (2,)
 
-    def __init__(self, config: SimConfig, device="cpu"):
+    def __init__(self, config: SimConfig, device="cuda"):
         config.validate()
         if config.ndim not in self.supported_ndim:
             raise ValueError(
                 f"engine {self.name!r} supports ndim in {self.supported_ndim}, "
-                f"got ndim={config.ndim}"
+                f"got ndim={config.ndim}; engines for ndim={config.ndim}: "
+                f"{', '.join(engine_names(config.ndim))}"
             )
         self.config = config
         self.device = resolve_device(device)
@@ -141,7 +142,7 @@ class Engine:
         raise NotImplementedError
 
     def frame_of(self, carry) -> torch.Tensor:
-        """(N, 2) positions in original id order."""
+        """(N, ndim) positions in original id order."""
         raise NotImplementedError
 
     def final_state(self, carry) -> ParticleState:
@@ -187,7 +188,9 @@ def register_engine(cls: Type[Engine]) -> Type[Engine]:
     return cls
 
 
-def get_engine(name: str, config: SimConfig, device="cpu") -> Engine:
+def get_engine(name: str, config: SimConfig, device="cuda") -> Engine:
+    """Engine ``name`` for ``config`` on ``device``: the card unless the
+    caller asks for the CPU (``cuda`` without a GPU raises)."""
     try:
         cls = _REGISTRY[name]
     except KeyError:
@@ -195,6 +198,8 @@ def get_engine(name: str, config: SimConfig, device="cpu") -> Engine:
     return cls(config, device=device)
 
 
-def engine_names() -> list:
-    """Registered engine names in registration order."""
-    return list(_REGISTRY)
+def engine_names(ndim: Optional[int] = None) -> list:
+    """Registered engine names in registration order, optionally only those
+    supporting ``ndim``."""
+    return [name for name, cls in _REGISTRY.items()
+            if ndim is None or ndim in cls.supported_ndim]

@@ -27,7 +27,8 @@ from ppsim_tpu_torch.ops import grid_ops
 from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, SlabState
 from ppsim_tpu_torch.state import ParticleState
 
-__all__ = ["GridEngine", "CudaGridEngine", "GridCarry", "seed_pack_monitors"]
+__all__ = ["GridEngine", "CudaGridEngine", "GridCarry", "seed_pack_monitors",
+           "require_slab_modes"]
 
 
 class GridCarry(NamedTuple):
@@ -45,18 +46,23 @@ def seed_pack_monitors(overflow, capacity: int) -> Monitors:
     return z._replace(max_bin_count=seeded)
 
 
+def require_slab_modes(config) -> None:
+    """The slab-grid family runs float32 with the axis rebin and sort pack."""
+    if config.dtype != "float32":
+        raise ValueError("the slab-grid engine family is float32-only")
+    if config.grid_rebin_mode != "axes":
+        raise ValueError("the port implements grid_rebin_mode='axes' only")
+    if config.grid_pack_mode != "sort":
+        raise ValueError("the port implements grid_pack_mode='sort' only")
+
+
 @register_engine
 class GridEngine(Engine):
     name = "grid"
 
-    def __init__(self, config, device="cpu"):
+    def __init__(self, config, device="cuda"):
         super().__init__(config, device=device)
-        if config.dtype != "float32":
-            raise ValueError("the slab-grid engine family is float32-only")
-        if config.grid_rebin_mode != "axes":
-            raise ValueError("the port implements grid_rebin_mode='axes' only")
-        if config.grid_pack_mode != "sort":
-            raise ValueError("the port implements grid_pack_mode='sort' only")
+        require_slab_modes(config)
         self.geom = SlabGeometry.for_config(config)
 
     @property
@@ -64,6 +70,10 @@ class GridEngine(Engine):
         # The chosen geometry's capacity (under grid_snap_lanes it follows
         # the snapped occupancy, not config.grid_capacity).
         return self.geom.capacity
+
+    @property
+    def rebin_every(self) -> int:
+        return self.config.rebin_every
 
     def check(self, result) -> None:
         """Monitors gate with the chosen geometry's capacity and slack."""
@@ -154,7 +164,7 @@ class GridEngine(Engine):
     def step(self, carry: GridCarry, i: int) -> GridCarry:
         """Rebins land on global steps i = K, 2K, ... (the JAX package's
         statically scheduled cadence)."""
-        if i % self.config.rebin_every == 0:
+        if i % self.rebin_every == 0:
             return self.step_with_rebin(carry)
         return self.step_plain(carry)
 
@@ -176,21 +186,14 @@ class CudaGridEngine(GridEngine):
 
     name = "cuda"
 
-    def __init__(self, config, device="cuda"):
-        super().__init__(config, device=device)
-        if config.force_law != "repulsive":
-            raise ValueError(
-                f"engine 'cuda' implements the repulsive law only (got "
-                f"force_law={config.force_law!r}); the LJ law is not ported "
-                "to the kernels yet")
-
     def move_phase(self, slab: SlabState):
         from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda
 
         cfg = self.config
         xl, yl, vx, vy, speed2 = grid_step_cuda(
             slab.xl, slab.yl, slab.vx, slab.vy, self.geom,
-            cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size)
+            cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size,
+            law=cfg.force_law, law_params=cfg.law_params)
         # sqrt of the max of the per-bin |v|^2 plane (order-free, so equal to
         # the reduction over the full slabs)
         return SlabState(xl, yl, vx, vy, slab.pid), torch.sqrt(speed2.max())

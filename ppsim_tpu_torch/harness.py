@@ -9,6 +9,8 @@ copy of the initial state happen before the timer starts; the timer stops
 after ``torch.cuda.synchronize()``.
 
     python -m ppsim_tpu_torch -n 262144 -s 42 --steps 200 --engine cuda --check
+    python -m ppsim_tpu_torch -n 20971520 --ndim 3 --density 7e-6 \
+        --force-law lj --dt 1e-4 -s 42 --engine cuda3d
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", type=int, default=1000, help="set number of particles")
     p.add_argument("-o", type=str, default=None, help="set the output file name")
     p.add_argument("-s", type=int, default=0, help="set particle initialization seed")
-    p.add_argument("--engine", default="cuda",
-                   help=" | ".join(engine_names()) + " (default cuda)")
+    p.add_argument("--engine", default=None,
+                   help=" | ".join(engine_names()) + " (default cuda, or "
+                        "cuda3d with --ndim 3)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the engine runs (default cuda; cuda without a "
                         "GPU is an error, never a silent CPU run)")
@@ -48,19 +51,48 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--savefreq", type=int, default=None, help="override savefreq (default 10)")
     p.add_argument("--check", action="store_true",
                    help="run the absmin/absavg correctness checker on the run's frames")
+    p.add_argument("--ndim", type=int, default=2, choices=(2, 3),
+                   help="2 (reference physics) or 3 (the stretch config; "
+                        "engines: " + ", ".join(engine_names(3)) + ")")
+    p.add_argument("--density", type=float, default=None,
+                   help="box measure per particle (default 0.0005; 3D runs "
+                        "want ~7e-6)")
+    p.add_argument("--force-law", default="repulsive", choices=("repulsive", "lj"),
+                   help="repulsive (reference) | lj (truncated Lennard-Jones)")
+    p.add_argument("--dt", type=float, default=None,
+                   help="override the timestep (default 0.0005; LJ runs want "
+                        "~1e-4)")
     p.add_argument("--rebin-every", type=int, default=None,
-                   help="rebin cadence in steps (default from config)")
+                   help="rebin cadence in steps (default from config; routes "
+                        "to the active --ndim family)")
     p.add_argument("--grid-capacity", type=int, default=None,
                    help="slots per bin (default auto; a hand value disables "
-                        "the drop-detected capacity escalation)")
+                        "the drop-detected capacity escalation; routes to "
+                        "the active --ndim family)")
     p.add_argument("--grid-bin-scale", type=float, default=None,
-                   help="bin side / cutoff (default from config)")
+                   help="bin side / cutoff (default from config; routes to "
+                        "the active --ndim family)")
+    p.add_argument("--grid3-bin-scale", type=float, default=None,
+                   help="3D engines: bin side / cutoff (explicit 3D form)")
+    p.add_argument("--grid3-capacity", type=int, default=None,
+                   help="3D engines: slots per bin (default auto: anisotropy "
+                        "and LJ-floor headroom plus drop-detected escalation; "
+                        "a hand value disables both)")
+    p.add_argument("--rebin3-every", type=int, default=None,
+                   help="3D engines: rebin cadence in steps (default auto "
+                        "from the geometry's slack)")
+    p.add_argument("--grid3-spill", type=int, default=None, choices=(0, 1),
+                   help="3D engines: park the t=0 packing overflow one bin "
+                        "over instead of raising capacity (default auto: on "
+                        "with auto capacity)")
     p.add_argument("--grid-snap-lanes", type=int, default=None, choices=(0, 1),
                    help="score lane-exact bin counts with the geometry cost "
                         "model (default on; see SlabGeometry.for_config)")
-    p.add_argument("--init", default="auto", choices=("auto", "reference"),
-                   help="particle initializer (both bit-faithful to the "
-                        "reference; auto draws a random seed for -s 0)")
+    p.add_argument("--init", default="auto", choices=("auto", "reference", "fast"),
+                   help="particle initializer: reference (2D, bit-faithful), "
+                        "fast (seeded lattice on the engine's device, 2D or "
+                        "3D) or auto (reference in 2D, fast in 3D; a random "
+                        "seed for -s 0)")
     p.add_argument("--metrics", type=str, default=None, help="append a JSONL metrics record")
     return p
 
@@ -79,7 +111,7 @@ def warm_up(engine, state: ParticleState) -> None:
     rebin_every - 1 plain steps, one step with rebin), so every kernel and
     allocation the timed region uses has run once."""
     carry = engine.init_carry(state)
-    carry, _ = engine.run_steps(carry, engine.config.rebin_every, 0)
+    carry, _ = engine.run_steps(carry, engine.rebin_every, 0)
     engine.final_state(carry)
     _sync(engine.device)
 
@@ -119,18 +151,25 @@ def timed_run(engine, state: ParticleState, nsteps: int, savefreq: int):
 
 
 def config_from_args(args) -> SimConfig:
-    kw = {
-        k: v
-        for k, v in (
-            ("grid_bin_scale", args.grid_bin_scale),
-            ("grid_capacity", args.grid_capacity),
-            ("rebin_every", args.rebin_every),
-        )
-        if v is not None
-    }
+    """The run's SimConfig. The generic ``--grid-*`` flags tune the family
+    that ``--ndim`` selects; the ``--grid3-*`` spellings win on conflict."""
+    family = ("grid3_bin_scale", "grid3_capacity", "rebin3_every") \
+        if args.ndim == 3 else ("grid_bin_scale", "grid_capacity", "rebin_every")
+    pairs = tuple(zip(family, (args.grid_bin_scale, args.grid_capacity,
+                               args.rebin_every))) + (
+        ("grid3_bin_scale", args.grid3_bin_scale),
+        ("grid3_capacity", args.grid3_capacity),
+        ("rebin3_every", args.rebin3_every),
+        ("density", args.density),
+        ("dt", args.dt),
+    )
+    kw = {k: v for k, v in pairs if v is not None}
     if args.grid_snap_lanes is not None:
         kw["grid_snap_lanes"] = bool(args.grid_snap_lanes)
-    return SimConfig(num_parts=args.n, **kw)
+    if args.grid3_spill is not None:
+        kw["grid3_spill"] = bool(args.grid3_spill)
+    return SimConfig(num_parts=args.n, ndim=args.ndim,
+                     force_law=args.force_law, **kw)
 
 
 def main(argv=None) -> int:
@@ -145,8 +184,10 @@ def main(argv=None) -> int:
         parser.error("-o/--check need saved frames: --savefreq must be >= 1")
     effective_savefreq = savefreq if (args.o or args.check) else 0
 
-    engine = get_engine(args.engine, config, device=args.device)
-    state = init_particles(config, seed=args.s, method=args.init)
+    engine_name = args.engine or ("cuda3d" if args.ndim == 3 else "cuda")
+    engine = get_engine(engine_name, config, device=args.device)
+    state = init_particles(config, seed=args.s, method=args.init,
+                           device=engine.device)
     result, seconds = timed_run(engine, state, nsteps, effective_savefreq)
     engine.check(result)
 
@@ -172,8 +213,10 @@ def main(argv=None) -> int:
 
     MetricsWriter(args.metrics).emit(
         {
-            "engine": args.engine,
+            "engine": engine_name,
             "num_parts": args.n,
+            "ndim": args.ndim,
+            "force_law": args.force_law,
             "nsteps": nsteps,
             "seed": args.s,
             "savefreq": effective_savefreq,

@@ -5,8 +5,9 @@ The reference initializer (``init_particles``, part1/main.cpp:31-59) places
 particles on a shuffled ceil(sqrt(N)) x sy lattice and draws velocities
 uniformly from [-1, 1) with ``std::mt19937``. :func:`init_particles_reference`
 reproduces it bit for bit, through the native library when it builds (seconds
-at n = 20.97M) or the numpy MT19937 below. The JAX package's
-``init_particles_fast`` draws from ``jax.random`` and has no counterpart here.
+at n = 20.97M) or the numpy MT19937 below. :func:`init_particles_fast` is the
+JAX package's seeded lattice initializer (the 3D path); it draws from a torch
+generator, so its permutation and velocities differ from ``jax.random``'s.
 """
 
 from __future__ import annotations
@@ -14,11 +15,13 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from ppsim_tpu_torch.config import SimConfig
 from ppsim_tpu_torch.state import ParticleState, make_state
 
-__all__ = ["MT19937", "init_particles_reference", "init_particles"]
+__all__ = ["MT19937", "init_particles_reference", "init_particles_fast",
+           "init_particles"]
 
 # Above this n the Python draw loop takes minutes; require the native library.
 _PY_LOOP_MAX_N = 2_000_000
@@ -158,20 +161,62 @@ def init_particles_reference(num_parts: int, size: float, seed: int):
     return pos, vel
 
 
+def init_particles_fast(num_parts: int, size: float, seed: int, ndim: int = 2,
+                        device="cpu"):
+    """The JAX package's ``init_particles_fast`` lattice, drawn with an
+    explicit ``torch.Generator(device).manual_seed(seed)``: a shuffled
+    ceil(sqrt(N)) x sy lattice in 2D, ceil(N^(1/3))^2 x sz in 3D (the
+    stretch-config analog; the reference is 2D-only), velocities U[-1, 1).
+    The lattice positions are the JAX package's float32 values; the
+    permutation and velocities follow torch's generator, not ``jax.random``.
+    Returns float32 ``(pos, vel)`` tensors on ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    k = torch.randperm(num_parts, generator=gen, device=device)
+    if ndim == 2:
+        sx = int(math.ceil(math.sqrt(float(num_parts))))
+        sy = (num_parts + sx - 1) // sx
+        cells = ((k % sx, sx), (torch.div(k, sx, rounding_mode="floor"), sy))
+    else:
+        sx = int(math.ceil(float(num_parts) ** (1.0 / 3.0)))
+        sy = sx
+        sz = (num_parts + sx * sy - 1) // (sx * sy)
+        cells = ((k % sx, sx),
+                 (torch.div(k, sx, rounding_mode="floor") % sy, sy),
+                 (torch.div(k, sx * sy, rounding_mode="floor"), sz))
+    L = float(np.float32(size))
+    # divide by a device tensor: CUDA turns division by a Python scalar into
+    # a multiply by its reciprocal, which would move positions by an ulp
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+    pos = torch.stack([L * (1.0 + idx.to(torch.float32)) / f(1 + s)
+                       for idx, s in cells], dim=-1)
+    vel = torch.rand((num_parts, ndim), generator=gen, device=device,
+                     dtype=torch.float32) * 2.0 - 1.0
+    return pos, vel
+
+
 def init_particles(config: SimConfig, seed: int, method: str = "auto",
                    device="cpu") -> ParticleState:
-    """Initial :class:`ParticleState` for a 2D config, on ``device``.
+    """Initial :class:`ParticleState` for a config, on ``device``.
 
-    ``method``: ``"reference"`` (bit-faithful; seed must be nonzero) or
-    ``"auto"``, which is the reference initializer with seed 0 replaced by a
-    fresh random seed, as the reference's random_device fallback does.
+    ``method``: ``"reference"`` (2D, bit-faithful; seed must be nonzero),
+    ``"fast"`` (the seeded lattice of :func:`init_particles_fast`, 2D or
+    3D) or ``"auto"``: the reference initializer in 2D, with seed 0
+    replaced by a fresh random seed as the reference's random_device
+    fallback does, and ``"fast"`` in 3D.
     """
-    if method not in ("auto", "reference"):
-        raise ValueError(f"unknown init method {method!r} (auto | reference)")
-    if config.ndim != 2:
-        raise ValueError("the port's initializer is 2D-only (the reference "
-                         "initializer has no 3D form)")
+    if method not in ("auto", "reference", "fast"):
+        raise ValueError(f"unknown init method {method!r} (auto | reference | fast)")
     if method == "auto" and seed == 0:
         seed = int(np.random.SeedSequence().generate_state(1)[0]) or 1
+    if method == "auto":
+        method = "reference" if config.ndim == 2 else "fast"
+    if method == "fast":
+        pos, vel = init_particles_fast(config.num_parts, config.size, seed,
+                                       ndim=config.ndim, device=device)
+        return make_state(pos, vel, dtype=config.torch_dtype, device=device)
+    if config.ndim != 2:
+        raise ValueError("the bit-faithful reference initializer is 2D-only "
+                         "(the reference has no 3D form); use method='fast'")
     pos, vel = init_particles_reference(config.num_parts, config.size, seed)
     return make_state(pos, vel, dtype=config.torch_dtype, device=device)

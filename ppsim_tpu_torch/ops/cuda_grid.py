@@ -4,7 +4,8 @@
 :func:`grid_step_cuda` launches ``csrc/grid_step.cu`` (force, Verlet move,
 wall fold and the per-bin max|v|^2 plane in one pass) on CUDA tensors and
 runs :func:`grid_step_plain` on CPU tensors; a tensor on any other device
-raises. There is no fallback from the kernel to the plain version.
+raises. There is no fallback from the kernel to the plain version. Both take
+the force law (``"repulsive"`` or ``"lj"``, the kernels' ``pair_coef.cuh``).
 """
 
 from __future__ import annotations
@@ -14,33 +15,84 @@ import torch
 from ppsim_tpu_torch import _build
 from ppsim_tpu_torch.ops.binning import BIG
 from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, f32, grid_force_xla, move_planes
+from ppsim_tpu_torch.physics import lj_coef_from_r2
 
-__all__ = ["grid_step_cuda", "grid_step_plain", "MAX_CAP"]
+__all__ = ["grid_step_cuda", "grid_step_plain", "MAX_CAP", "LAWS", "pair_args",
+           "kernel_coef_of"]
 
 # Largest slot capacity the kernel is instantiated for (csrc/grid_step.cu).
 MAX_CAP = 32
+# Law ids of csrc/pair_coef.cuh.
+LAWS = {"repulsive": 0, "lj": 1}
+
+
+def _require_law(law: str) -> None:
+    if law not in LAWS:
+        raise ValueError(f"unknown force_law {law!r}; the kernels have {sorted(LAWS)}")
+
+
+def pair_args(law: str, cutoff, min_r, mass, law_params=()):
+    """The kernels' force-law arguments ``(law_id, c2, cutoff, mr2,
+    inv_mass, sig2, lj_k, mass)``, each constant the float32 value its plain
+    twin rounds: ``f32(cutoff^2)`` for the repulsive law (grid_ops.pair_coef),
+    ``f32(cutoff)^2`` rounded for LJ (physics.lj_coef_from_r2)."""
+    _require_law(law)
+    if law == "lj":
+        eps, sigma = law_params
+        c2 = f32(f32(cutoff) * f32(cutoff))
+        lj = (f32(sigma * sigma), f32(-24.0 * eps))
+    else:
+        c2 = f32(cutoff * cutoff)
+        lj = (0.0, 0.0)
+    return (LAWS[law], c2, f32(cutoff), f32(min_r * min_r), f32(1.0 / mass),
+            *lj, f32(mass))
+
+
+def kernel_coef_of(law: str, cutoff, min_r, mass, law_params=()):
+    """``coef(r2)`` with the kernels' pair arithmetic: grid_ops.pair_coef's
+    rsqrt form for the repulsive law, physics.lj_coef_from_r2 for LJ."""
+    _require_law(law)
+    if law == "lj":
+        eps, sigma = law_params
+        return lambda r2: lj_coef_from_r2(r2, cutoff, min_r, mass, eps, sigma)
+
+    def repulsive(r2):
+        rinv = torch.rsqrt(torch.clamp(r2, min=f32(min_r * min_r)))
+        inv2 = rinv * rinv
+        coef = (inv2 - f32(cutoff) * rinv * inv2) * f32(1.0 / mass)
+        return torch.where(r2 <= f32(cutoff * cutoff), coef, 0.0)
+
+    return repulsive
 
 
 def grid_step_plain(xl, yl, vx, vy, geom: SlabGeometry, cutoff, min_r, mass,
-                    dt, size):
+                    dt, size, law="repulsive", law_params=()):
     """Plain twin of K1: ``grid_force_xla`` + the move, returning
     ``(xl', yl', vx', vy', speed2)`` with ``speed2`` the (R, C) plane of
     per-bin max |v|^2. Like the kernel (and the TPU kernel), slot aliveness
     comes from the position sentinel: dead slots hold exactly BIG."""
-    ax, ay = grid_force_xla(xl, yl, geom, cutoff, min_r, mass)
+    _require_law(law)
+    pair_fn = None
+    if law == "lj":
+        coef_of = kernel_coef_of(law, cutoff, min_r, mass, law_params)
+
+        def pair_fn(dx, dy):
+            coef = coef_of(dx * dx + dy * dy)
+            return coef * dx, coef * dy
+    ax, ay = grid_force_xla(xl, yl, geom, cutoff, min_r, mass, pair_fn=pair_fn)
     xl, yl, vx, vy, speed2 = move_planes(xl, yl, vx, vy, ax, ay,
                                          xl < 0.5 * BIG, geom, dt, size)
     return xl, yl, vx, vy, speed2.amax(dim=0)
 
 
-def _check_planes(planes, geom: SlabGeometry, dtype=torch.float32) -> None:
+def _check_planes(planes, shape, dtype=torch.float32) -> None:
     for t in planes:
         if t.device.type != "cuda":
             raise ValueError(f"expected CUDA tensors, got {t.device}")
         if t.dtype != dtype:
             raise TypeError(f"expected {dtype}, got {t.dtype}")
-        if tuple(t.shape) != geom.shape:
-            raise ValueError(f"expected shape {geom.shape}, got {tuple(t.shape)}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"expected shape {tuple(shape)}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("expected contiguous slab planes")
         if t.device != planes[0].device:
@@ -48,25 +100,25 @@ def _check_planes(planes, geom: SlabGeometry, dtype=torch.float32) -> None:
 
 
 def grid_step_cuda(xl, yl, vx, vy, geom: SlabGeometry, cutoff, min_r, mass,
-                   dt, size):
+                   dt, size, law="repulsive", law_params=()):
     """Fused step, same contract as :func:`grid_step_plain`. CUDA tensors
     launch K1 (``grid_step_cuda.launches`` counts the launches); CPU tensors
     run the plain twin."""
     if xl.device.type == "cpu":
-        return grid_step_plain(xl, yl, vx, vy, geom, cutoff, min_r, mass, dt, size)
-    _check_planes((xl, yl, vx, vy), geom)
+        return grid_step_plain(xl, yl, vx, vy, geom, cutoff, min_r, mass, dt,
+                               size, law, law_params)
+    _check_planes((xl, yl, vx, vy), geom.shape)
     cap, R, C = geom.shape
     if cap > MAX_CAP:
         raise ValueError(f"capacity {cap} > {MAX_CAP}, the kernel's largest")
+    law_id, *consts = pair_args(law, cutoff, min_r, mass, law_params)
     outs = [torch.empty_like(xl) for _ in range(4)]
     speed2 = torch.empty((R, C), dtype=torch.float32, device=xl.device)
     lib = _build.kernels()
     err = lib.ppsim_grid_step(
         *(t.data_ptr() for t in (xl, yl, vx, vy, *outs, speed2)),
-        xl.device.index, cap, R, C,
-        f32(geom.bin_size), f32(cutoff * cutoff), f32(cutoff),
-        f32(min_r * min_r), f32(1.0 / mass), f32(dt), f32(size),
-        torch.cuda.current_stream(xl.device).cuda_stream)
+        xl.device.index, cap, R, C, law_id, f32(geom.bin_size), *consts,
+        f32(dt), f32(size), torch.cuda.current_stream(xl.device).cuda_stream)
     _build.check_launch(err, "grid_step kernel")
     grid_step_cuda.launches += 1
     return (*outs, speed2)

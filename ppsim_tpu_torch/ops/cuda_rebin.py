@@ -29,8 +29,8 @@ def rebin_axes_call_cuda(state: SlabState, geom: SlabGeometry, evac_cap: int):
     each of which launches both passes); the plain twin on CPU tensors."""
     if state.xl.device.type == "cpu":
         return rebin_axes_call_plain(state, geom, evac_cap)
-    _check_planes(state[:4], geom)
-    _check_planes(state[4:], geom, dtype=torch.int32)
+    _check_planes(state[:4], geom.shape)
+    _check_planes(state[4:], geom.shape, dtype=torch.int32)
     cap, R, C = geom.shape
     if cap > MAX_CAP:
         raise ValueError(f"capacity {cap} > {MAX_CAP}, the kernel's largest")

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "const_like",
     "coef_from_r2",
     "lj_coef_from_r2",
     "accel_from_deltas",
@@ -36,6 +37,14 @@ def as_dtype(x: float, dtype: torch.dtype) -> float:
     return float(np.float32(x)) if dtype == torch.float32 else float(x)
 
 
+def const_like(x: float, t):
+    """``x`` as a 0-dim tensor of ``t``'s dtype on ``t``'s device. Division
+    by it, or of it, is a true elementwise division on every device, as in
+    JAX: torch computes ``scalar / t`` as ``reciprocal(t) * scalar``, and on
+    CUDA ``t / scalar`` as ``t * (1 / scalar)``, each an extra rounding."""
+    return torch.full((), as_dtype(x, t.dtype), dtype=t.dtype, device=t.device)
+
+
 def coef_from_r2(r2, cutoff: float, min_r: float, mass: float):
     """Repulsive pair coefficient: the acceleration contribution is
     ``coef * d`` componentwise (reference: part1/serial.cpp:19-36)."""
@@ -46,7 +55,7 @@ def coef_from_r2(r2, cutoff: float, min_r: float, mass: float):
     in_range = r2 <= cut * cut
     r2c = torch.clamp(r2, min=as_dtype(min_r * min_r, dt))
     r = torch.sqrt(r2c)
-    coef = (1.0 - cut / r) / r2c / as_dtype(mass, dt)
+    coef = (1.0 - const_like(cut, r) / r) / r2c / const_like(mass, r)
     return torch.where(in_range, coef, torch.zeros_like(coef))
 
 
@@ -58,9 +67,9 @@ def lj_coef_from_r2(r2, cutoff: float, min_r: float, mass: float,
     cut = as_dtype(cutoff, dt)
     in_range = r2 <= cut * cut
     r2c = torch.clamp(r2, min=as_dtype(min_r * min_r, dt))
-    s2 = as_dtype(sigma * sigma, dt) / r2c
+    s2 = const_like(sigma * sigma, r2c) / r2c
     s6 = s2 * s2 * s2
-    coef = -24.0 * epsilon * (2.0 * s6 * s6 - s6) / r2c / mass
+    coef = -24.0 * epsilon * (2.0 * s6 * s6 - s6) / r2c / const_like(mass, r2c)
     return torch.where(in_range, coef, torch.zeros_like(coef))
 
 

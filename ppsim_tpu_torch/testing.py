@@ -5,11 +5,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from ppsim_tpu_torch.convert import slab_state_from_numpy
+from ppsim_tpu_torch.convert import slab3_state_from_numpy, slab_state_from_numpy
 from ppsim_tpu_torch.ops.binning import BIG
+from ppsim_tpu_torch.ops.grid3d_ops import Geometry3S, Slab3State
 from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, SlabState
 
-__all__ = ["STRESS_GEOMETRY", "stress_slab"]
+__all__ = ["STRESS_GEOMETRY", "stress_slab", "STRESS_GEOMETRY3", "stress_slab3"]
 
 # 13 x 100 physical bins padded to 16 x 128, capacity 4: the JAX package's
 # contention geometry (tests/test_grid_ops.py).
@@ -53,3 +54,46 @@ def stress_slab(geom: SlabGeometry, seed: int = 0, far_movers: int = 0,
         xl[0, r, c] = 2.2 * bs  # raw row direction 2
         yl[0, r, c] = 0.5 * bs
     return slab_state_from_numpy(xl, yl, vx, vy, pid, device=device)
+
+
+# 6 x 7 x 100 physical bins padded to 6 x 8 x 128, capacity 4, anisotropic
+# bin sides: the 3D contention geometry (padding on two axes).
+STRESS_GEOMETRY3 = Geometry3S(ys=6, xs=7, zs=100, xs_pad=8, zs_pad=128,
+                              ys_pad=6, capacity=4, bsy=0.05, bsx=0.04,
+                              bsz=0.03)
+
+
+def stress_slab3(geom: Geometry3S, seed: int = 0, far_movers: int = 0,
+                 device="cpu") -> Slab3State:
+    """3D counterpart of :func:`stress_slab`: every physical bin holds 0 to
+    ``capacity`` live particles in its lowest slots, each up to one bin
+    outside its own on every axis, plus ``far_movers`` particles 2.2 bins out
+    along x (stale-slack violations)."""
+    rng = np.random.default_rng(seed)
+    cap, Y, X, Z = geom.shape
+    occ = rng.integers(0, cap + 1, size=(Y, X, Z))
+    occ[geom.ys:] = 0
+    occ[:, geom.xs:] = 0
+    occ[:, :, geom.zs:] = 0
+    live = np.arange(cap)[:, None, None, None] < occ[None]
+    n = int(live.sum())
+    fields = []
+    for bs in (geom.bsx, geom.bsy, geom.bsz):
+        f = np.full(geom.shape, BIG, np.float32)
+        f[live] = rng.uniform(-bs, 2 * bs, n)
+        fields.append(f)
+    for _ in range(3):
+        v = np.zeros(geom.shape, np.float32)
+        v[live] = rng.normal(size=n)
+        fields.append(v)
+    pid = np.full(geom.shape, -1, np.int32)
+    pid[live] = np.arange(n, dtype=np.int32)
+    for i in range(far_movers):
+        y, x, z = 1 + i, 2, 3
+        if pid[0, y, x, z] < 0:
+            pid[0, y, x, z] = n
+            n += 1
+            fields[1][0, y, x, z] = 0.5 * geom.bsy
+            fields[2][0, y, x, z] = 0.5 * geom.bsz
+        fields[0][0, y, x, z] = 2.2 * geom.bsx  # raw x direction 2
+    return slab3_state_from_numpy(*fields, pid, device=device)

@@ -82,9 +82,56 @@ def test_pack_overflow_escalates_capacity(tiny_grid_config):
 
 
 def test_cuda_engine_refuses_lj(tiny_grid_config):
+    """The kernels take the LJ law now (pair_coef.cuh); what the step still
+    refuses is a law the kernels do not have."""
+    from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda, pair_args
+
     tcfg = config_from_dict(dataclasses.asdict(tiny_grid_config)).with_(force_law="lj")
+    eng = get_engine("cuda", tcfg, device="cpu")
+    assert pair_args("lj", tcfg.cutoff, tcfg.min_r, tcfg.mass, tcfg.law_params)[0] == 1
+    slab = eng.init_carry(_inputs(tiny_grid_config)[2]).slab
     with pytest.raises(ValueError, match="repulsive"):
-        get_engine("cuda", tcfg, device="cpu")
+        grid_step_cuda(*slab[:4], eng.geom, tcfg.cutoff, tcfg.min_r, tcfg.mass,
+                       tcfg.dt, tcfg.size, law="morse")
+
+
+@pytest.fixture(scope="module")
+def jax_grid_lj_run():
+    """The JAX grid engine's 24-step 2D LJ run (dt 1e-4) at the tiny grid
+    geometry, with its inputs."""
+    from ppsim_tpu.config import SimConfig
+
+    jcfg = SimConfig(num_parts=200, grid_bin_scale=3.0, grid_capacity=6,
+                     evac_capacity=2, rebin_every=4, force_law="lj", dt=1e-4)
+    jstate, tcfg, tstate = _inputs(jcfg)
+    return tcfg, tstate, jget_engine("grid", jcfg).run(jstate, nsteps=24)
+
+
+def test_cuda_engine_lj_matches_jax_grid_engine(jax_grid_lj_run):
+    """K1's LJ law (its plain twin on the CPU) over 24 steps: positions
+    within 1e-5 of the JAX grid engine, monitors exact."""
+    tcfg, tstate, jr = jax_grid_lj_run
+    tr = get_engine("cuda", tcfg, device="cpu").run(tstate, nsteps=24)
+    diff = np.abs(tr.state.pos.numpy() - np.asarray(jr.state.pos)).max()
+    assert diff <= 1e-5
+    for f in ("max_bin_count", "migrate_dropped", "deferred"):
+        assert int(getattr(tr.monitors, f)) == int(getattr(jr.monitors, f)), f
+    assert float(tr.monitors.max_speed) == pytest.approx(
+        float(jr.monitors.max_speed), rel=1e-4)
+
+
+def test_get_engine_defaults_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU: with
+    no device, get_engine builds on CUDA, and raises where there is none."""
+    from ppsim_tpu_torch.config import SimConfig
+
+    for name, cfg in (("cuda", SimConfig(num_parts=200)),
+                      ("cuda3d", SimConfig(num_parts=500, ndim=3, density=7e-6))):
+        if torch.cuda.is_available():
+            assert get_engine(name, cfg).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA GPU"):
+                get_engine(name, cfg)
 
 
 def test_cli_check_passes_on_cpu(capsys, tmp_path):
@@ -113,6 +160,10 @@ def test_package_never_imports_jax():
         "import ppsim_tpu_torch, ppsim_tpu_torch.harness, ppsim_tpu_torch.convert\n"
         "import ppsim_tpu_torch.checker, ppsim_tpu_torch.native\n"
         "import ppsim_tpu_torch.ops.cuda_grid, ppsim_tpu_torch.ops.cuda_rebin\n"
+        "import ppsim_tpu_torch.ops.grid3d_ops, ppsim_tpu_torch.ops.cuda_grid3\n"
+        "import ppsim_tpu_torch.ops.cuda_rebin3, ppsim_tpu_torch.engines.grid3d\n"
+        "import ppsim_tpu_torch.testing, ppsim_tpu_torch.initlib, ppsim_tpu_torch.io\n"
+        "import ppsim_tpu_torch.profiling\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ppsim_tpu' or m.startswith('ppsim_tpu.')]\n"
         "assert all(sys.modules[m] is None for m in bad), bad\n"

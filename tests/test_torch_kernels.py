@@ -1,5 +1,5 @@
-"""The kernel wrappers of ppsim_tpu_torch (K1 fused step, K2 rebin) and their
-build. This file imports no JAX, so it also runs on a GPU host without it:
+"""The kernel wrappers of ppsim_tpu_torch (K1 fused step, K2 rebin, K3 3D
+fused step, K4 + K5 3D rebin) and their build. This file imports no JAX, so it also runs on a GPU host without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
@@ -18,19 +18,41 @@ import torch
 
 from ppsim_tpu_torch import _build
 from ppsim_tpu_torch.config import SimConfig
-from ppsim_tpu_torch.convert import slab_state_from_numpy
+from ppsim_tpu_torch.convert import slab3_state_from_numpy, slab_state_from_numpy
 from ppsim_tpu_torch.engines import get_engine
 from ppsim_tpu_torch.initlib import init_particles
-from ppsim_tpu_torch.ops import grid_ops
+from ppsim_tpu_torch.ops import grid3d_ops, grid_ops
 from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda, grid_step_plain
+from ppsim_tpu_torch.ops.cuda_grid3 import VARIANTS, grid3_step_cuda, grid3_step_plain
 from ppsim_tpu_torch.ops.cuda_rebin import rebin_axes_call_cuda, rebin_axes_call_plain
-from ppsim_tpu_torch.testing import STRESS_GEOMETRY, stress_slab
+from ppsim_tpu_torch.ops.cuda_rebin3 import (
+    rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_ypass_cuda, rebin3_ypass_plain,
+)
+from ppsim_tpu_torch.testing import (
+    STRESS_GEOMETRY, STRESS_GEOMETRY3, stress_slab, stress_slab3,
+)
 
 # K1 against its plain twin: same summation order, but rsqrtf and FMA
 # contraction may move the last bits of the pair sums.
 RTOL, ATOL = 1e-5, 1e-6
 TINY = SimConfig(num_parts=200, grid_bin_scale=3.0, grid_capacity=6,
                  evac_capacity=2, rebin_every=4)
+# 3D: the JAX package's BASE3 test config, and n = 262,144 (41^3 bins padded
+# to 41 x 48 x 128, auto capacity 10).
+TINY3 = SimConfig(num_parts=500, ndim=3, density=7e-6, grid3_capacity=8,
+                  evac_capacity=2, rebin3_every=4)
+PAD3 = SimConfig(num_parts=262_144, ndim=3, density=7e-6)
+LJ = dict(force_law="lj", dt=1e-4)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The plain twins run many small ops: under the suite's parallel
+    workers, torch's intra-op threads would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -64,6 +86,28 @@ def _step_args(cfg, geom):
     return (geom, cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size)
 
 
+def _drifted_slab3(cfg, frac, seed, device="cpu"):
+    """Packed fast-init 3D slab, live particles drifted by up to ``frac``
+    bins on each axis: at 0.2 pairs interact (closest near 0.6 cutoff, as in
+    a run that passes the checker), at 0.8 movers cross every face."""
+    geom = grid3d_ops.Geometry3S.for_config(cfg)
+    st = init_particles(cfg, seed=42, method="fast")
+    slab, ovf = grid3d_ops.slab3_from_particles(st.pos, st.vel, geom)
+    assert int(ovf) == 0
+    arrays = [t.numpy().copy() for t in slab]
+    rng = np.random.default_rng(seed)
+    live = arrays[6] >= 0
+    for k, bs in enumerate((geom.bsx, geom.bsy, geom.bsz)):
+        arrays[k][live] += rng.uniform(-frac * bs, frac * bs,
+                                       live.sum()).astype(np.float32)
+    return geom, slab3_state_from_numpy(*arrays, device=device)
+
+
+def _step3_args(cfg, geom):
+    return (geom, cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size,
+            cfg.force_law, cfg.law_params)
+
+
 def test_step_wrapper_runs_plain_twin_on_cpu_only():
     geom, slab = _drifted_slab(TINY, 0.45, 0)
     before = grid_step_cuda.launches
@@ -91,6 +135,42 @@ def test_rebin_wrapper_runs_plain_twin_on_cpu_only():
                               torch.empty(g.shape, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         rebin_axes_call_cuda(meta, g, 2)
+
+
+def test_step3_wrapper_runs_plain_twin_on_cpu_only():
+    cfg = TINY3.with_(**LJ)
+    geom, slab = _drifted_slab3(cfg, 0.2, 0)
+    before = grid3_step_cuda.launches
+    got = grid3_step_cuda(*slab[:6], *_step3_args(cfg, geom))
+    want = grid3_step_plain(*slab[:6], *_step3_args(cfg, geom))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[6].shape == geom.shape[1:]
+    assert grid3_step_cuda.launches == before
+    meta = [torch.empty(geom.shape, device="meta") for _ in range(6)]
+    with pytest.raises(ValueError, match="CUDA"):
+        grid3_step_cuda(*meta, *_step3_args(cfg, geom))
+
+
+def test_rebin3_wrappers_run_plain_twins_on_cpu_only():
+    g = STRESS_GEOMETRY3
+    slab = stress_slab3(g, seed=1, far_movers=1)
+    before = (rebin3_inplane_cuda.launches, rebin3_ypass_cuda.launches)
+    mid, cnt = rebin3_inplane_cuda(slab, g, 2)
+    want_mid, want_cnt = rebin3_inplane_plain(slab, g, 2)
+    out, post = rebin3_ypass_cuda(mid, cnt, g, 2)
+    want_out, want_post = rebin3_ypass_plain(mid, cnt, g, 2)
+    for a, b in zip((*mid, cnt, *out, post),
+                    (*want_mid, want_cnt, *want_out, want_post)):
+        assert torch.equal(a, b)
+    assert cnt.shape == (5, *g.shape[1:]) and cnt.dtype == torch.int32
+    assert post.shape == (2, *g.shape[1:]) and post.dtype == torch.int32
+    assert (rebin3_inplane_cuda.launches, rebin3_ypass_cuda.launches) == before
+    meta = grid3d_ops.Slab3State(
+        *(torch.empty(g.shape, device="meta") for _ in range(6)),
+        torch.empty(g.shape, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        rebin3_inplane_cuda(meta, g, 2)
 
 
 def test_build_cache_is_keyed_by_source(tmp_path, monkeypatch):
@@ -158,6 +238,59 @@ def test_cuda_engine_matches_grid_engine_on_card(cuda):
     st = init_particles(TINY, seed=42)
     a = get_engine("cuda", TINY, device=cuda).run(st, nsteps=24)
     b = get_engine("grid", TINY, device=cuda).run(st, nsteps=24)
+    torch.testing.assert_close(a.state.pos, b.state.pos, rtol=0, atol=1e-5)
+    assert int(a.monitors.max_bin_count) == int(b.monitors.max_bin_count)
+    assert int(a.monitors.migrate_dropped) == int(b.monitors.migrate_dropped) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("law", ["repulsive", "lj"])
+@pytest.mark.parametrize("cfg", [TINY3, PAD3], ids=["tiny", "padded"])
+def test_step3_kernel_matches_plain_on_card(cuda, cfg, law, variant):
+    cfg = cfg.with_(**LJ) if law == "lj" else cfg
+    geom, slab = _drifted_slab3(cfg, 0.2, 4, device=cuda)
+    args = _step3_args(cfg, geom)
+    before = grid3_step_cuda.launches
+    got = grid3_step_cuda(*slab[:6], *args, variant=variant)
+    assert grid3_step_cuda.launches == before + 1
+    want = grid3_step_plain(*slab[:6], *args)
+    assert float((want[3] - slab.vx).abs().max()) > 0  # forces act
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tiny", "padded", "contention"])
+def test_rebin3_kernels_bitwise_on_card(cuda, case):
+    if case == "contention":
+        geom, evac = STRESS_GEOMETRY3, 2
+        slab = stress_slab3(geom, seed=3, far_movers=2, device=cuda)
+    else:
+        cfg = TINY3 if case == "tiny" else PAD3
+        evac = cfg.evac_capacity
+        geom, slab = _drifted_slab3(cfg, 0.8, 5, device=cuda)
+    before = (rebin3_inplane_cuda.launches, rebin3_ypass_cuda.launches)
+    mid, cnt = rebin3_inplane_cuda(slab, geom, evac)
+    want_mid, want_cnt = rebin3_inplane_plain(slab, geom, evac)
+    for a, b in zip((*mid, cnt), (*want_mid, want_cnt)):
+        assert torch.equal(a, b)
+    out, post = rebin3_ypass_cuda(mid, cnt, geom, evac)
+    want_out, want_post = rebin3_ypass_plain(mid, cnt, geom, evac)
+    for a, b in zip((*out, post), (*want_out, want_post)):
+        assert torch.equal(a, b)
+    assert (rebin3_inplane_cuda.launches, rebin3_ypass_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert int((out.pid != slab.pid).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["repulsive", "lj"])
+def test_cuda3d_engine_matches_grid3d_engine_on_card(cuda, law):
+    cfg = TINY3.with_(**LJ) if law == "lj" else TINY3
+    st = init_particles(cfg, seed=42, method="fast")
+    a = get_engine("cuda3d", cfg, device=cuda).run(st, nsteps=24)
+    b = get_engine("grid3d", cfg, device=cuda).run(st, nsteps=24)
     torch.testing.assert_close(a.state.pos, b.state.pos, rtol=0, atol=1e-5)
     assert int(a.monitors.max_bin_count) == int(b.monitors.max_bin_count)
     assert int(a.monitors.migrate_dropped) == int(b.monitors.migrate_dropped) == 0
