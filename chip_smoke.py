@@ -20,8 +20,8 @@ Phases, each printing its result and seconds on its own line:
    engine ``cuda``, unsaved, through ``harness.timed_run``; the monitors must
    pass, every pid must sit in exactly one slot of the final slab, and both
    kernels must have launched;
-4. the 3D kernels against their plain twins on the card: K3 (fused 3D step,
-   both thread mappings) allclose, K4 (x + z pass) and K5 (y pass) bitwise,
+4. the 3D kernels against their plain twins on the card: K3 (fused 3D step)
+   allclose, K4 (x + z pass) and K5 (y pass) bitwise,
    at the stretch geometry (n = 20,971,520, LJ: 140 x 152 x 256 bins,
    capacity 13) on the packed slab and after 8 steps, on the padded n =
    262,144 geometry with both laws, and K4/K5 on a 3D contention slab; times
@@ -186,25 +186,19 @@ def k2_compare(name, slab, geom, evac) -> None:
 
 
 def k3_compare(name, slab, geom, cfg) -> float:
-    """K3 (both thread mappings) against its plain twin; returns the max
-    abs difference."""
-    from ppsim_tpu_torch.ops.cuda_grid3 import VARIANTS, grid3_step_cuda, grid3_step_plain
+    """K3 against its plain twin; returns the max abs difference."""
+    from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
 
     args = (*slab[:6], geom, cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt,
             cfg.size, cfg.force_law, cfg.law_params)
+    got = grid3_step_cuda(*args)
     want = grid3_step_plain(*args)
-    worst = 0.0
-    for variant in sorted(VARIANTS):
-        got = grid3_step_cuda(*args, variant=variant)
-        errs = [assert_close(f"K3 {name} {variant} {p}", g, w, K3_RTOL, K3_ATOL)
-                for p, g, w in zip(("xl", "yl", "zl", "vx", "vy", "vz",
-                                    "speed2"), got, want)]
-        worst = max(worst, *errs)
-        log(f"  K3 {name} ({variant}, {cfg.force_law}): allclose (rtol "
-            f"{K3_RTOL:g}, atol {K3_ATOL:g}); max abs diff "
-            + " ".join(f"{e:.3e}" for e in errs))
-    del want
-    return worst
+    errs = [assert_close(f"K3 {name} {p}", g, w, K3_RTOL, K3_ATOL)
+            for p, g, w in zip(("xl", "yl", "zl", "vx", "vy", "vz", "speed2"),
+                               got, want)]
+    log(f"  K3 {name} ({cfg.force_law}): allclose (rtol {K3_RTOL:g}, atol "
+        f"{K3_ATOL:g}); max abs diff " + " ".join(f"{e:.3e}" for e in errs))
+    return max(errs)
 
 
 def k45_compare(name, slab, geom, evac) -> None:
@@ -243,9 +237,7 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
     from ppsim_tpu_torch.engines import get_engine
     from ppsim_tpu_torch.harness import timed_run
     from ppsim_tpu_torch.initlib import init_particles
-    from ppsim_tpu_torch.ops.cuda_grid3 import (
-        DEFAULT_VARIANT, VARIANTS, grid3_step_cuda, grid3_step_plain,
-    )
+    from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
     from ppsim_tpu_torch.ops.cuda_rebin3 import (
         rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_ypass_cuda,
         rebin3_ypass_plain,
@@ -331,21 +323,18 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
     a3 = (*slab8[:6], g3, cfg3.cutoff, cfg3.min_r, cfg3.mass, cfg3.dt,
           cfg3.size, cfg3.force_law, cfg3.law_params)
     mid, cnt = rebin3_inplane_cuda(slab8, g3, evac)
-    plain = {"k3": [], "k4": [], "k5": []}
-    kern = {**{f"k3 {v}": [] for v in VARIANTS}, "k4": [], "k5": []}
-    for rnd in range(2):
-        if rnd == 0:
-            plain["k3"].append(cuda_ms(lambda: grid3_step_plain(*a3), 1))
-            plain["k4"].append(cuda_ms(lambda: rebin3_inplane_plain(slab8, g3, evac), 1))
-            plain["k5"].append(cuda_ms(lambda: rebin3_ypass_plain(mid, cnt, g3, evac), 1))
-        for v in VARIANTS:
-            kern[f"k3 {v}"].append(cuda_ms(lambda v=v: grid3_step_cuda(*a3, variant=v), 10))
-        kern["k4"].append(cuda_ms(lambda: rebin3_inplane_cuda(slab8, g3, evac), 10))
-        kern["k5"].append(cuda_ms(lambda: rebin3_ypass_cuda(mid, cnt, g3, evac), 10))
-        if rnd == 1:
-            plain["k3"].append(cuda_ms(lambda: grid3_step_plain(*a3), 1))
-            plain["k4"].append(cuda_ms(lambda: rebin3_inplane_plain(slab8, g3, evac), 1))
-            plain["k5"].append(cuda_ms(lambda: rebin3_ypass_plain(mid, cnt, g3, evac), 1))
+    plain_fns = {"k3": lambda: grid3_step_plain(*a3),
+                 "k4": lambda: rebin3_inplane_plain(slab8, g3, evac),
+                 "k5": lambda: rebin3_ypass_plain(mid, cnt, g3, evac)}
+    kern_fns = {"k3": lambda: grid3_step_cuda(*a3),
+                "k4": lambda: rebin3_inplane_cuda(slab8, g3, evac),
+                "k5": lambda: rebin3_ypass_cuda(mid, cnt, g3, evac)}
+    plain = {k: [cuda_ms(fn, 1)] for k, fn in plain_fns.items()}
+    kern = {k: [cuda_ms(fn, 10)] for k, fn in kern_fns.items()}
+    for k, fn in kern_fns.items():
+        kern[k].append(cuda_ms(fn, 10))
+    for k, fn in plain_fns.items():
+        plain[k].append(cuda_ms(fn, 1))
     # bounds on this slab: K3 reads 6 planes and writes 6 + the speed plane
     # and makes at least 8 flops (3 sub, 3 mul, 2 add) per candidate pair;
     # K4 reads 7 planes and writes 7 + 5 count planes; K5 reads 7 planes +
@@ -354,11 +343,11 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
     bin_b = plane_b // g3.capacity
     pairs3 = candidate_pairs(slab8.pid)
     for rec, key, nbytes, flops in (
-            (k3, f"k3 {DEFAULT_VARIANT}", 12 * plane_b + bin_b, 8 * pairs3),
+            (k3, "k3", 12 * plane_b + bin_b, 8 * pairs3),
             (k4, "k4", 14 * plane_b + 5 * bin_b, 0),
             (k5, "k5", 14 * plane_b + 4 * bin_b, 0)):
         bound, by = bound_of(nbytes, flops)
-        rec.update(ms=min(kern[key]), plain_ms=min(plain[key.split()[0]]),
+        rec.update(ms=min(kern[key]), plain_ms=min(plain[key]),
                    bound_ms=bound, bound_by=by)
     log(f"  times at {g3.ys}x{g3.xs}x{g3.zs} cap {g3.capacity} (ms/call; "
         f"{smi}): " + "; ".join(f"{k} {' '.join(f'{t:.4f}' for t in v)}"

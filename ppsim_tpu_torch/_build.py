@@ -136,7 +136,7 @@ def kernels() -> ctypes.CDLL:
     for fn, types in (
             (lib.ppsim_grid_step, [P] * 9 + [I] * 5 + [F] * 10 + [P]),
             (lib.ppsim_rebin_axes, [P] * 16 + [I] * 7 + [F] * 2 + [P]),
-            (lib.ppsim_grid3_step, [P] * 13 + [I] * 9 + [F] * 12 + [P]),
+            (lib.ppsim_grid3_step, [P] * 13 + [I] * 8 + [F] * 12 + [P]),
             (lib.ppsim_rebin3_inplane, [P] * 22 + [I] * 9 + [F] * 5 + [P]),
             (lib.ppsim_rebin3_ypass, [P] * 16 + [I] * 9 + [F] * 4 + [P])):
         fn.argtypes = types

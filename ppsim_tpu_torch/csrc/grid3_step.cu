@@ -16,21 +16,18 @@
 // evaluates each pair once and carries the y+1 reactions to the next y-slab
 // through a whole-plane VMEM spill that relies on Pallas running grid steps
 // in order; CUDA blocks run concurrently, so that would race. Owner-computes
-// needs no atomics for the force and is deterministic. Neighbours are masked
+// needs no atomics and is deterministic. Neighbours are masked
 // at the physical edges (xs, zs; y at the array edge), not at the padded
 // extents; dead neighbour slots contribute exact zeros and are skipped.
 //
-// Two thread mappings, selected by the wrapper:
-//  - per bin (variant 0): one thread per bin holds its slots' coordinates
-//    and accumulators in registers (cap templated to 8/12/16/32), loads each
-//    neighbour slot once and tests it against its own live slots up to the
-//    last live one. Register pressure grows as 6 x MAXC.
-//  - per slot (variant 1): one thread per (slot, bin), z fastest, so a warp
-//    reads 32 consecutive floats of one slot plane; a dead own slot only
-//    writes its sentinel. Few registers, but each neighbour slot is loaded by
-//    every live slot of the bin (L1 hits), and the speed plane is a max over
-//    threads: atomicMax on the float bits (|v|^2 >= 0 orders as int) into a
-//    plane the wrapper zeroes. A max is order-free, so it stays exact.
+// Thread mapping: one thread per bin, z fastest (a warp reads 32
+// consecutive floats of a slot plane), holding its slots' coordinates and
+// accumulators in registers (cap templated to 8/12/16/32). It loads each
+// neighbour slot once and tests it against its own live slots up to the last
+// live one. Register pressure grows as 6 x MAXC: 128 registers at MAXC 16
+// with a few bytes of spill for LJ (ptxas). One thread per (slot, bin) needs
+// 64-80 registers but loads every neighbour slot once per live own slot; it
+// measured 2x slower at the stretch geometry (PERF.md), so it is not kept.
 //
 // Bound. Memory: 6 planes read and 6 written once plus the speed plane,
 // 12 x cap x plane x 4 B (3.4 GB at the 20.97M stretch geometry, ~1 ms at
@@ -40,8 +37,8 @@
 // rate, not the bytes, is what this design pays for.
 //
 // Numerics. Constants arrive as the float32 values the plain twin rounds.
-// The repulsive coefficient's rsqrtf differs from torch.rsqrt by an ulp, so
-// parity with the plain twin is allclose (rtol 1e-5, atol 1e-6); everything
+// The repulsive coefficient's rsqrtf may differ from torch.rsqrt by an ulp,
+// so parity with the plain twin is allclose (rtol 1e-5, atol 1e-6); everything
 // else, the move tail included, repeats the twin's rounding step for step.
 
 #include <cuda_runtime.h>
@@ -114,11 +111,10 @@ __device__ __forceinline__ float move_slot(const Fields& in, const Outs& out,
   return alive ? r2_of(vx, vy, vz) : 0.0f;
 }
 
-// Variant 0: one thread per bin, its slots in registers.
 template <int MAXC, Law LAW>
 __global__ void __launch_bounds__(128)
-grid3_step_bin_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
-                      PairParams pp, float dt, float L) {
+grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
+                  PairParams pp, float dt, float L) {
   const int64_t plane = (int64_t)g.Y * g.X * g.Z;
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= plane) return;
@@ -195,92 +191,24 @@ grid3_step_bin_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
   sp[b] = spmax;
 }
 
-// Variant 1: one thread per (slot, bin).
-template <Law LAW>
-__global__ void __launch_bounds__(256)
-grid3_step_slot_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
-                       PairParams pp, float dt, float L) {
-  const int64_t plane = (int64_t)g.Y * g.X * g.Z;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= plane * g.cap) return;
-  const int64_t b = i % plane;
-  const int z = (int)(b % g.Z);
-  const int x = (int)((b / g.Z) % g.X);
-  const int y = (int)(b / ((int64_t)g.X * g.Z));
-
-  const float sx = in.x[i];
-  const float sy = in.y[i];
-  const float sz = in.z[i];
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  if (sx < 0.5f * kBig) {
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int yn = y + dy;
-      if (yn < 0 || yn >= g.Y) continue;
-      const float offy = (float)dy * g.bsy;
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int xn = x + dx;
-        if (xn < 0 || xn >= g.xs) continue;
-        const float offx = (float)dx * g.bsx;
-        for (int dz = -1; dz <= 1; ++dz) {
-          const int zn = z + dz;
-          if (zn < 0 || zn >= g.zs) continue;
-          const float offz = (float)dz * g.bsz;
-          const int64_t nb = ((int64_t)yn * g.X + xn) * g.Z + zn;
-          for (int j = 0; j < g.cap; ++j) {
-            const float xv = in.x[j * plane + nb];
-            if (!(xv < 0.5f * kBig)) continue;
-            const float ddx = __fsub_rn(__fadd_rn(xv, offx), sx);
-            const float ddy =
-                __fsub_rn(__fadd_rn(in.y[j * plane + nb], offy), sy);
-            const float ddz =
-                __fsub_rn(__fadd_rn(in.z[j * plane + nb], offz), sz);
-            const float r2 = r2_of(ddx, ddy, ddz);
-            if (r2 <= pp.c2) {
-              const float coef = ppsim::pair_coef<LAW>(r2, pp);
-              ax = __fadd_rn(ax, __fmul_rn(coef, ddx));
-              ay = __fadd_rn(ay, __fmul_rn(coef, ddy));
-              az = __fadd_rn(az, __fmul_rn(coef, ddz));
-            }
-          }
-        }
-      }
-    }
-  }
-  const float v2 = move_slot(in, out, i, sx, sy, sz, ax, ay, az,
-                             __fmul_rn((float)x, g.bsx),
-                             __fmul_rn((float)y, g.bsy),
-                             __fmul_rn((float)z, g.bsz), dt, L);
-  if (v2 > 0.0f) atomicMax(reinterpret_cast<int*>(sp + b), __float_as_int(v2));
-}
-
 template <int MAXC, Law LAW>
-int launch_bin(const Fields& in, const Outs& out, float* sp, const Geo3& g,
-               const PairParams& pp, float dt, float L, cudaStream_t s) {
+int launch(const Fields& in, const Outs& out, float* sp, const Geo3& g,
+           const PairParams& pp, float dt, float L, cudaStream_t s) {
   const int64_t plane = (int64_t)g.Y * g.X * g.Z;
   const int block = 128;
   const int64_t grid = (plane + block - 1) / block;
-  grid3_step_bin_kernel<MAXC, LAW><<<(unsigned)grid, block, 0, s>>>(
+  grid3_step_kernel<MAXC, LAW><<<(unsigned)grid, block, 0, s>>>(
       in, out, sp, g, pp, dt, L);
   return (int)cudaGetLastError();
 }
 
 template <Law LAW>
-int launch_law(int variant, const Fields& in, const Outs& out, float* sp,
-               const Geo3& g, const PairParams& pp, float dt, float L,
-               cudaStream_t s) {
-  if (variant == 1) {
-    const int64_t n = (int64_t)g.Y * g.X * g.Z * g.cap;
-    const int block = 256;
-    const int64_t grid = (n + block - 1) / block;
-    grid3_step_slot_kernel<LAW><<<(unsigned)grid, block, 0, s>>>(
-        in, out, sp, g, pp, dt, L);
-    return (int)cudaGetLastError();
-  }
-  if (variant != 0) return (int)cudaErrorInvalidValue;
-  if (g.cap <= 8) return launch_bin<8, LAW>(in, out, sp, g, pp, dt, L, s);
-  if (g.cap <= 12) return launch_bin<12, LAW>(in, out, sp, g, pp, dt, L, s);
-  if (g.cap <= 16) return launch_bin<16, LAW>(in, out, sp, g, pp, dt, L, s);
-  if (g.cap <= 32) return launch_bin<32, LAW>(in, out, sp, g, pp, dt, L, s);
+int launch_law(const Fields& in, const Outs& out, float* sp, const Geo3& g,
+               const PairParams& pp, float dt, float L, cudaStream_t s) {
+  if (g.cap <= 8) return launch<8, LAW>(in, out, sp, g, pp, dt, L, s);
+  if (g.cap <= 12) return launch<12, LAW>(in, out, sp, g, pp, dt, L, s);
+  if (g.cap <= 16) return launch<16, LAW>(in, out, sp, g, pp, dt, L, s);
+  if (g.cap <= 32) return launch<32, LAW>(in, out, sp, g, pp, dt, L, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -288,14 +216,13 @@ int launch_law(int variant, const Fields& in, const Outs& out, float* sp,
 
 extern "C" {
 
-// Inputs x, y, z, vx, vy, vz; outputs likewise; sp the (Y, X, Z) speed plane
-// (zeroed by the caller for variant 1). law 0 = repulsive, 1 = Lennard-Jones;
-// variant 0 = thread per bin (cap <= 32), 1 = thread per (slot, bin).
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Inputs x, y, z, vx, vy, vz; outputs likewise; sp the (Y, X, Z) speed
+// plane. law 0 = repulsive, 1 = Lennard-Jones. Returns cudaGetLastError()
+// after the launch (0 = launched). cap <= 32.
 int ppsim_grid3_step(const float* x, const float* y, const float* z,
                      const float* vx, const float* vy, const float* vz,
                      float* xo, float* yo, float* zo, float* vxo, float* vyo,
-                     float* vzo, float* sp, int device, int variant, int cap,
+                     float* vzo, float* sp, int device, int cap,
                      int Y, int X, int Z, int xs, int zs, int law, float bsx,
                      float bsy, float bsz, float c2, float cutoff, float mr2,
                      float inv_mass, float sig2, float lj_k, float mass,
@@ -309,9 +236,9 @@ int ppsim_grid3_step(const float* x, const float* y, const float* z,
   const Geo3 g{cap, Y, X, Z, xs, zs, bsx, bsy, bsz};
   const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
   if (law == (int)Law::kRepulsive)
-    return launch_law<Law::kRepulsive>(variant, in, out, sp, g, pp, dt, L, s);
+    return launch_law<Law::kRepulsive>(in, out, sp, g, pp, dt, L, s);
   if (law == (int)Law::kLJ)
-    return launch_law<Law::kLJ>(variant, in, out, sp, g, pp, dt, L, s);
+    return launch_law<Law::kLJ>(in, out, sp, g, pp, dt, L, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -56,7 +56,6 @@ class Grid3DEngine(GridEngine):
     # force law (the JAX package's measured run maxima: the repulsive law
     # never exceeds its lattice packing, LJ clusters one slot past it).
     _TAIL_SLOTS = {"repulsive": 0, "lj": 1}
-    _DROP_RETRIES = 2
 
     def __init__(self, config, device="cuda"):
         Engine.__init__(self, config, device=device)  # no 2D geometry

@@ -20,12 +20,7 @@ from ppsim_tpu_torch.ops.cuda_grid import MAX_CAP, _check_planes, kernel_coef_of
 from ppsim_tpu_torch.ops.grid3d_ops import Geometry3S, grid3_force_xla, move3_planes
 from ppsim_tpu_torch.ops.grid_ops import f32
 
-__all__ = ["grid3_step_cuda", "grid3_step_plain", "VARIANTS", "DEFAULT_VARIANT"]
-
-# Thread mappings of csrc/grid3_step.cu: one thread per bin (slots in
-# registers) or one per (slot, bin).
-VARIANTS = {"bin": 0, "slot": 1}
-DEFAULT_VARIANT = "bin"
+__all__ = ["grid3_step_cuda", "grid3_step_plain"]
 
 
 def grid3_step_plain(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
@@ -43,11 +38,10 @@ def grid3_step_plain(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
 
 
 def grid3_step_cuda(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
-                    mass, dt, size, law="repulsive", law_params=(),
-                    variant=DEFAULT_VARIANT):
+                    mass, dt, size, law="repulsive", law_params=()):
     """Fused step, same contract as :func:`grid3_step_plain`. CUDA tensors
-    launch K3 with thread mapping ``variant`` (``grid3_step_cuda.launches``
-    counts the launches); CPU tensors run the plain twin."""
+    launch K3 (``grid3_step_cuda.launches`` counts the launches); CPU
+    tensors run the plain twin."""
     if xl.device.type == "cpu":
         return grid3_step_plain(xl, yl, zl, vx, vy, vz, geom, cutoff, min_r,
                                 mass, dt, size, law, law_params)
@@ -58,12 +52,11 @@ def grid3_step_cuda(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
         raise ValueError(f"capacity {cap} > {MAX_CAP}, the kernel's largest")
     law_id, *consts = pair_args(law, cutoff, min_r, mass, law_params)
     outs = [torch.empty_like(xl) for _ in range(6)]
-    # the per-slot mapping takes a max over threads into a zeroed plane
-    speed2 = torch.zeros((Y, X, Z), dtype=torch.float32, device=xl.device)
+    speed2 = torch.empty((Y, X, Z), dtype=torch.float32, device=xl.device)
     lib = _build.kernels()
     err = lib.ppsim_grid3_step(
         *(t.data_ptr() for t in (*planes, *outs, speed2)),
-        xl.device.index, VARIANTS[variant], cap, Y, X, Z, geom.xs, geom.zs,
+        xl.device.index, cap, Y, X, Z, geom.xs, geom.zs,
         law_id, f32(geom.bsx), f32(geom.bsy), f32(geom.bsz), *consts,
         f32(dt), f32(size), torch.cuda.current_stream(xl.device).cuda_stream)
     _build.check_launch(err, "grid3_step kernel")

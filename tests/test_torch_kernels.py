@@ -23,7 +23,7 @@ from ppsim_tpu_torch.engines import get_engine
 from ppsim_tpu_torch.initlib import init_particles
 from ppsim_tpu_torch.ops import grid3d_ops, grid_ops
 from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda, grid_step_plain
-from ppsim_tpu_torch.ops.cuda_grid3 import VARIANTS, grid3_step_cuda, grid3_step_plain
+from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
 from ppsim_tpu_torch.ops.cuda_rebin import rebin_axes_call_cuda, rebin_axes_call_plain
 from ppsim_tpu_torch.ops.cuda_rebin3 import (
     rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_ypass_cuda, rebin3_ypass_plain,
@@ -244,15 +244,14 @@ def test_cuda_engine_matches_grid_engine_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("law", ["repulsive", "lj"])
 @pytest.mark.parametrize("cfg", [TINY3, PAD3], ids=["tiny", "padded"])
-def test_step3_kernel_matches_plain_on_card(cuda, cfg, law, variant):
+def test_step3_kernel_matches_plain_on_card(cuda, cfg, law):
     cfg = cfg.with_(**LJ) if law == "lj" else cfg
     geom, slab = _drifted_slab3(cfg, 0.2, 4, device=cuda)
     args = _step3_args(cfg, geom)
     before = grid3_step_cuda.launches
-    got = grid3_step_cuda(*slab[:6], *args, variant=variant)
+    got = grid3_step_cuda(*slab[:6], *args)
     assert grid3_step_cuda.launches == before + 1
     want = grid3_step_plain(*slab[:6], *args)
     assert float((want[3] - slab.vx).abs().max()) > 0  # forces act
