@@ -72,7 +72,7 @@ STRETCH = dict(num_parts=20_971_520, ndim=3, density=7e-6, force_law="lj",
                dt=1e-4)
 STRETCH_GEOM = (140, 152, 256, 13, 8)  # ys, xs, zs, capacity, cadence
 N_PAD3 = 262_144  # 41^3 bins padded to 41 x 48 x 128, capacity 10
-# One NVIDIA H100 SXM (the on-chip-measurement guide's table, 700 W).
+# Peak rates of one NVIDIA H100 SXM at 700 W (HBM3 bandwidth, dense FP32).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
