@@ -33,10 +33,26 @@ Phases, each printing its result and seconds on its own line:
 6. the stretch config at full width: n = 20,971,520, 3D LJ, 1000 steps,
    engine ``cuda3d``, unsaved, through ``harness.timed_run``; monitors, pid
    census, positions in the box, launch counts and a checker PASS on the
-   final frame; then a ``torch.profiler`` window of two rebin periods.
+   final frame; then a ``torch.profiler`` window of two rebin periods;
+7. the rest of the 2D family against its plain twins on the card: K6
+   (force-only) allclose with both laws on the main-path slab after 11 steps
+   and on the padded n = 262,144 geometry, K7 (dirs9 counts) and K8 (dirs9
+   shuffle) bitwise on those slabs and on the contention slab; kernel and
+   plain times at the main-path shape; the ``cuda`` engine against the
+   plain ``grid`` engine with ``grid_rebin_mode="dirs9"`` on a small run;
+8. the CLI with dirs9: ``python -m ppsim_tpu_torch -n 262144 -s 42 --steps
+   200 --engine cuda --grid-rebin-mode dirs9 --check`` must print the summary
+   line and a checker PASS;
+9. dirs9 at full width: phase 3's run with ``grid_rebin_mode="dirs9"``
+   (monitors, pid census, positions in the box, K7/K8 launches), then the
+   final state's accelerations through the engine's force-only API
+   (``CudaGridEngine.accel_of``, K6) must obey Newton's third law (net force
+   ~0); its seconds beside phase 3's, and ``profiling.phase_times`` of the
+   ``cuda`` engine at the main-path config with each rebin mode.
 
 The line before the last is a JSON object with each kernel's launches in its
-full-width run (phase 3 for K1 and K2, phase 6 for K3-K5), its largest
+full-width run (phase 3 for K1 and K2, phase 6 for K3-K5, phase 9 for K6-K8),
+its largest
 difference from the plain twin, its time beside the plain twin's and its
 bound (the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s float32, counted from this run's inputs); the last line is
@@ -67,6 +83,14 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-6
 # repulsive rsqrtf differs from torch.rsqrt by an ulp, which the force sums
 # carry into velocities at ~1e-7 relative.
 K3_RTOL, K3_ATOL = 1e-5, 1e-6
+# K6 parity: K1's pair loop, but its outputs are the pair sums themselves,
+# where close pairs' terms cancel: 1e-5 relative, and 1e-6 of the largest
+# |a| absolute (FMA contraction moves the last bit of each term).
+K6_RTOL, K6_ATOL_OF_MAX = 1e-5, 1e-6
+# Newton's third law on the full-width final state: each pair is evaluated
+# from both sides in bin-local frames, whose rounding differs by ~1e-6
+# relative per pair; the net force must be below 1e-5 of the summed |a|.
+NEWTON3_RTOL = 1e-5
 # The stretch config (BASELINE.json configs[4]; README, bench/r5_*.sh).
 STRETCH = dict(num_parts=20_971_520, ndim=3, density=7e-6, force_law="lj",
                dt=1e-4)
@@ -151,6 +175,42 @@ def candidate_pairs(pid) -> int:
     for off in itertools.product(range(3), repeat=n.dim()):
         near += padded[tuple(slice(o, o + m) for o, m in zip(off, n.shape))]
     return int(((n * near).sum() - n.sum()) // 2)
+
+
+def check_final(slab, pos, n: int, ndim: int, size: float) -> None:
+    """Every pid 0..n-1 in exactly one slot of the final slab, and the final
+    positions finite, (n, ndim) and inside the box (global coordinates are
+    float32 sums xl + row * bs: a few ulps are allowed)."""
+    import torch
+
+    pids = slab.pid[slab.pid >= 0].long()
+    hist = torch.bincount(pids, minlength=n)
+    if pids.numel() != n or hist.numel() != n or int(hist.max()) != 1:
+        raise AssertionError(
+            f"pid census: {pids.numel()} live slots, max multiplicity "
+            f"{int(hist.max())}, expected each of {n} once")
+    if pos.shape != (n, ndim) or not bool(torch.isfinite(pos).all()):
+        raise AssertionError(f"final positions not finite ({n}, {ndim})")
+    lo, hi = float(pos.min()), float(pos.max())
+    if lo < -size * 2.0**-21 or hi > size * (1 + 2.0**-21):
+        raise AssertionError(f"final positions [{lo}, {hi}] outside the "
+                             f"box [0, {size}]")
+
+
+def run_cli(label: str, args) -> None:
+    """``python -m ppsim_tpu_torch *args`` must exit 0 and print the summary
+    line and a checker PASS."""
+    cmd = [sys.executable, "-m", "ppsim_tpu_torch", *args]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    for line in (proc.stdout + proc.stderr).strip().splitlines():
+        log(f"  cli: {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label} exited {proc.returncode}")
+    if "Simulation Time = " not in proc.stdout:
+        raise RuntimeError(f"{label} printed no summary line")
+    if "Correctness check: PASS" not in proc.stdout:
+        raise RuntimeError(f"{label} checker did not PASS")
 
 
 def k1_compare(name, slab, geom, cfg, law="repulsive", law_params=()) -> float:
@@ -363,20 +423,9 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
 
     # ---- phase 5: the 3D CLI end to end ----------------------------------
     t0 = time.perf_counter()
-    cmd = [sys.executable, "-m", "ppsim_tpu_torch", "-n", str(N_PAD3),
-           "--ndim", "3", "--density", "7e-6", "--force-law", "lj", "--dt",
-           "1e-4", "-s", str(SEED), "--steps", "200", "--engine", "cuda3d",
-           "--check"]
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    for line in (proc.stdout + proc.stderr).strip().splitlines():
-        log(f"  cli: {line}")
-    if proc.returncode != 0:
-        raise RuntimeError(f"3D CLI exited {proc.returncode}")
-    if "Simulation Time = " not in proc.stdout:
-        raise RuntimeError("3D CLI printed no summary line")
-    if "Correctness check: PASS" not in proc.stdout:
-        raise RuntimeError("3D CLI checker did not PASS")
+    run_cli("3D CLI", ["-n", str(N_PAD3), "--ndim", "3", "--density", "7e-6",
+                       "--force-law", "lj", "--dt", "1e-4", "-s", str(SEED),
+                       "--steps", "200", "--engine", "cuda3d", "--check"])
     phase_line("5", "3D CLI --check PASS", t0)
 
     # ---- phase 6: the stretch config at full width ------------------------
@@ -391,20 +440,8 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
         rec["launches"] = rec["wrapper"].launches
     peak = torch.cuda.max_memory_allocated(dev)
     engine.check(result)
-    slab = result.carry.slab
-    pids = slab.pid[slab.pid >= 0].long()
-    hist = torch.bincount(pids, minlength=n3)
-    if pids.numel() != n3 or hist.numel() != n3 or int(hist.max()) != 1:
-        raise AssertionError(
-            f"pid census: {pids.numel()} live slots, max multiplicity "
-            f"{int(hist.max())}, expected each of {n3} once")
     pos = result.state.pos
-    if pos.shape != (n3, 3) or not bool(torch.isfinite(pos).all()):
-        raise AssertionError("final positions not finite (N, 3)")
-    lo, hi = float(pos.min()), float(pos.max())
-    if lo < -cfg3.size * 2.0**-21 or hi > cfg3.size * (1 + 2.0**-21):
-        raise AssertionError(f"final positions [{lo}, {hi}] outside the "
-                             f"box [0, {cfg3.size}]")
+    check_final(result.carry.slab, pos, n3, 3, cfg3.size)
     cadence = engine.rebin_every
     if (k3["launches"] < STEPS_MAIN + cadence
             or min(k4["launches"], k5["launches"]) < STEPS_MAIN // cadence + 1):
@@ -441,6 +478,225 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
     phase_line("6", "stretch config at full width clean", t0)
 
 
+def k6_compare(name, slab, geom, cfg) -> float:
+    """K6 against its plain twin; returns the max abs difference."""
+    import torch
+
+    from ppsim_tpu_torch.ops.cuda_grid import grid_force_cuda, grid_force_plain
+
+    args = (slab.xl, slab.yl, geom, cfg.cutoff, cfg.min_r, cfg.mass,
+            cfg.force_law, cfg.law_params)
+    got = grid_force_cuda(*args)
+    want = grid_force_plain(*args)
+    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    atol = K6_ATOL_OF_MAX * scale
+    errs = [assert_close(f"K6 {name} {p}", g, w, K6_RTOL, atol)
+            for p, g, w in zip(("ax", "ay"), got, want)]
+    log(f"  K6 {name} ({cfg.force_law}): allclose (rtol {K6_RTOL:g}, atol "
+        f"{K6_ATOL_OF_MAX:g} x max|a| = {atol:.3e}); max abs diff ax "
+        f"{errs[0]:.3e} ay {errs[1]:.3e}; max|a| {scale:.6g}")
+    return max(errs)
+
+
+def k78_compare(name, slab, geom, evac, want_dropped=None) -> None:
+    """K7 then K8 against their plain twins, bitwise on all planes."""
+    from ppsim_tpu_torch.ops.cuda_rebin import (
+        rebin_counts_cuda, rebin_counts_plain, rebin_shuffle_cuda,
+        rebin_shuffle_plain,
+    )
+    from ppsim_tpu_torch.ops.grid_ops import monitors_of_counts
+
+    counts = rebin_counts_cuda(slab, geom)
+    assert_equal(f"K7 {name} count planes", counts, rebin_counts_plain(slab, geom))
+    out, cnt = rebin_shuffle_cuda(slab, counts, geom, evac)
+    want, wcnt = rebin_shuffle_plain(slab, counts, geom, evac)
+    for f, g, w in zip(out._fields, out, want):
+        assert_equal(f"K8 {name} {f}", g, w)
+    assert_equal(f"K8 {name} monitor planes", cnt, wcnt)
+    mon = [int(v) for v in monitors_of_counts(cnt)]
+    if want_dropped is not None and mon[1] != want_dropped:
+        raise AssertionError(f"K8 {name}: dropped {mon[1]}, expected {want_dropped}")
+    moved = int((out.pid != slab.pid).sum())
+    log(f"  K7+K8 {name}: bitwise equal on 9 count planes, 5 planes + 4 "
+        f"monitor planes; slots changed {moved}; monitors (max_occ, dropped, "
+        f"deferred) {mon}")
+
+
+def phase_2d_rest(kernels, state, cfg, axes_seconds: float, smi: str) -> None:
+    """Phases 7-9: the rest of the 2D kernel family (K6 force-only, K7 + K8
+    dirs9 rebin) against its twins, the dirs9 CLI, and dirs9 at full width.
+    Fills the K6-K8 records of ``kernels``."""
+    import torch
+
+    from ppsim_tpu_torch.config import SimConfig
+    from ppsim_tpu_torch.engines import get_engine
+    from ppsim_tpu_torch.harness import timed_run
+    from ppsim_tpu_torch.initlib import init_particles
+    from ppsim_tpu_torch.ops.cuda_grid import grid_force_cuda, grid_force_plain
+    from ppsim_tpu_torch.ops.cuda_rebin import (
+        rebin_counts_cuda, rebin_counts_plain, rebin_shuffle_cuda,
+        rebin_shuffle_plain,
+    )
+    from ppsim_tpu_torch.profiling import phase_times
+    from ppsim_tpu_torch.testing import STRESS_GEOMETRY, stress_slab
+
+    dev = torch.device("cuda", 0)
+    k6, k7, k8 = (kernels[k] for k in ("grid_force", "rebin_counts",
+                                       "rebin_shuffle"))
+    cfg9 = cfg.with_(grid_rebin_mode="dirs9")
+
+    # ---- phase 7: K6-K8 against their plain twins -------------------------
+    t0 = time.perf_counter()
+    eng = get_engine("cuda", cfg9, device=dev)
+    geom, evac = eng.geom, cfg.evac_capacity
+    carry = eng.init_carry(state)
+    for _ in range(CADENCE_MAIN):
+        carry = eng.step_plain(carry)
+    slab11 = carry.slab
+    del carry
+    lj2 = cfg.with_(force_law="lj", dt=1e-4)
+    err6 = max(k6_compare(f"main-path slab after {CADENCE_MAIN} steps", slab11,
+                          geom, c) for c in (cfg, lj2))
+    k78_compare(f"main-path slab after {CADENCE_MAIN} steps", slab11, geom, evac)
+    for law_kw in ({}, dict(force_law="lj", dt=1e-4)):
+        cfg_p = SimConfig(num_parts=262_144, **law_kw)
+        eng_p = get_engine("cuda", cfg_p.with_(grid_rebin_mode="dirs9"), device=dev)
+        gp = eng_p.geom
+        carry = eng_p.init_carry(init_particles(cfg_p, seed=SEED, device=dev))
+        for _ in range(cfg_p.rebin_every):
+            carry = eng_p.step_plain(carry)
+        err6 = max(err6, k6_compare(f"padded {gp.shape}", carry.slab, gp, cfg_p))
+        k78_compare(f"padded ({cfg_p.force_law})", carry.slab, gp,
+                    cfg_p.evac_capacity)
+    gs = STRESS_GEOMETRY
+    k78_compare("contention slab", stress_slab(gs, 0, 2, dev), gs, 2,
+                want_dropped=2)
+    k6["max_abs_err"] = err6
+    k7["max_abs_err"] = k8["max_abs_err"] = 0.0
+
+    # the cuda engine against the plain grid engine with dirs9, small run
+    cfg_s = SimConfig(num_parts=1000, grid_bin_scale=3.0, grid_capacity=6,
+                      evac_capacity=2, rebin_every=4, grid_rebin_mode="dirs9")
+    st_s = init_particles(cfg_s, seed=SEED, device=dev)
+    ra = get_engine("cuda", cfg_s, device=dev).run(st_s, nsteps=24)
+    rb = get_engine("grid", cfg_s, device=dev).run(st_s, nsteps=24)
+    e_pos = assert_close("engine cuda vs grid pos (dirs9)", ra.state.pos,
+                         rb.state.pos, 0.0, 1e-5)
+    if [int(v) for v in ra.monitors[:2]] != [int(v) for v in rb.monitors[:2]]:
+        raise AssertionError(f"monitors differ: {ra.monitors} vs {rb.monitors}")
+    log(f"  engine cuda vs grid (dirs9), n=1000, 24 steps: positions max abs "
+        f"diff {e_pos:.3e}; max_bin_count {int(ra.monitors.max_bin_count)}")
+
+    # times at the main-path shape: plain, kernel, kernel, plain
+    counts = rebin_counts_cuda(slab11, geom)
+    fa = (slab11.xl, slab11.yl, geom, cfg.cutoff, cfg.min_r, cfg.mass)
+    plain_fns = {"k6": lambda: grid_force_plain(*fa),
+                 "k7": lambda: rebin_counts_plain(slab11, geom),
+                 "k8": lambda: rebin_shuffle_plain(slab11, counts, geom, evac)}
+    kern_fns = {"k6": lambda: grid_force_cuda(*fa),
+                "k7": lambda: rebin_counts_cuda(slab11, geom),
+                "k8": lambda: rebin_shuffle_cuda(slab11, counts, geom, evac)}
+    plain = {k: [cuda_ms(fn, 2)] for k, fn in plain_fns.items()}
+    kern = {k: [cuda_ms(fn, 20)] for k, fn in kern_fns.items()}
+    for k, fn in kern_fns.items():
+        kern[k].append(cuda_ms(fn, 20))
+    for k, fn in plain_fns.items():
+        plain[k].append(cuda_ms(fn, 2))
+    # bounds on this slab: K6 reads 2 planes and writes 2, and makes at least
+    # 5 flops (2 sub, 2 mul, 1 add) per candidate pair; K7 reads 3 planes and
+    # writes 9 count planes; K8 reads 5 planes + 9 count planes and writes 5
+    # planes + 4 monitor planes
+    plane_b = 4 * slab11.xl.numel()
+    bin_b = plane_b // geom.capacity
+    pairs2 = candidate_pairs(slab11.pid)
+    for rec, key, nbytes, flops in (
+            (k6, "k6", 4 * plane_b, 5 * pairs2),
+            (k7, "k7", 3 * plane_b + 9 * bin_b, 0),
+            (k8, "k8", 10 * plane_b + 13 * bin_b, 0)):
+        bound, by = bound_of(nbytes, flops)
+        rec.update(ms=min(kern[key]), plain_ms=min(plain[key]),
+                   bound_ms=bound, bound_by=by)
+    log(f"  times at {geom.rows}x{geom.cols} cap {geom.capacity} (ms/call; "
+        f"{smi}): " + "; ".join(f"{k} {' '.join(f'{t:.4f}' for t in v)}"
+                                 for k, v in kern.items())
+        + "; plain " + "; ".join(f"{k} {' '.join(f'{t:.3f}' for t in v)}"
+                                 for k, v in plain.items()))
+    log(f"  bounds: K6 {k6['bound_ms']:.4f} ms ({k6['bound_by']}; {pairs2} "
+        f"candidate pairs), K7 {k7['bound_ms']:.4f} ms, K8 "
+        f"{k8['bound_ms']:.4f} ms (bytes)")
+    del slab11, counts, fa, eng
+    torch.cuda.empty_cache()
+    phase_line("7", "K6-K8 agree with their plain twins", t0)
+
+    # ---- phase 8: the CLI with dirs9 --------------------------------------
+    t0 = time.perf_counter()
+    run_cli("dirs9 CLI", ["-n", "262144", "-s", str(SEED), "--steps", "200",
+                          "--engine", "cuda", "--grid-rebin-mode", "dirs9",
+                          "--check"])
+    phase_line("8", "dirs9 CLI --check PASS", t0)
+
+    # ---- phase 9: dirs9 at full width -------------------------------------
+    t0 = time.perf_counter()
+    engine = get_engine("cuda", cfg9, device=dev)
+    path9 = [kernels[k] for k in ("grid_step", "grid_force", "rebin_counts",
+                                  "rebin_shuffle")]
+    for k in path9:
+        k["wrapper"].launches = 0
+    result, seconds = timed_run(engine, state, STEPS_MAIN, 0)
+    engine.check(result)
+    slab = result.carry.slab
+    ax, ay = engine.accel_of(slab.xl, slab.yl)
+    torch.cuda.synchronize()
+    launches9 = [k["wrapper"].launches for k in path9]
+    for k in path9[1:]:
+        k["launches"] = k["wrapper"].launches
+    check_final(slab, result.state.pos, N_MAIN, 2, cfg.size)
+    m = result.monitors
+    if int(m.migrate_dropped) != 0:
+        raise AssertionError(f"dirs9 run dropped {int(m.migrate_dropped)}")
+    warm = cfg.rebin_every  # timed_run's untimed warm-up period
+    want = [STEPS_MAIN + warm, 1] + [STEPS_MAIN // CADENCE_MAIN + 1] * 2
+    if launches9 != want:
+        raise AssertionError(f"launches (grid_step, grid_force, rebin_counts, "
+                             f"rebin_shuffle) {launches9}, expected {want}")
+    # K6 against its twin on this state too: the step-11 slab of phase 7
+    # still holds the init lattice, with few pairs in cutoff
+    err6 = max(k6_compare(f"final dirs9 state ({STEPS_MAIN} steps)", slab,
+                          engine.geom, c) for c in (cfg, cfg.with_(force_law="lj", dt=1e-4)))
+    k6["max_abs_err"] = max(k6["max_abs_err"], err6)
+    live = slab.pid >= 0
+    net = [float(a[live].double().sum()) for a in (ax, ay)]
+    total = [float(a[live].double().abs().sum()) for a in (ax, ay)]
+    if any(abs(n) > NEWTON3_RTOL * t for n, t in zip(net, total)) or min(total) <= 0:
+        raise AssertionError(f"Newton 3: net force {net} against summed |a| "
+                             f"{total} (limit {NEWTON3_RTOL:g})")
+    log(f"  n={N_MAIN} steps={STEPS_MAIN} rebin_every={CADENCE_MAIN} "
+        f"capacity={engine.capacity} dirs9: {seconds:.4f} s = "
+        f"{N_MAIN * STEPS_MAIN / seconds / 1e6:.2f} M particle-steps/s; axes "
+        f"(phase 3, same process): {axes_seconds:.4f} s; dirs9 / axes = "
+        f"{seconds / axes_seconds:.4f} ({smi})")
+    log(f"  monitors: max_bin_count {int(m.max_bin_count)} dropped "
+        f"{int(m.migrate_dropped)} max_speed {float(m.max_speed):.4f} "
+        f"deferred {int(m.deferred)}")
+    log(f"  launches: grid_step {launches9[0]} (schedule {STEPS_MAIN} + {warm} "
+        f"warm-up), rebin_counts {launches9[2]}, rebin_shuffle {launches9[3]} "
+        f"(schedule {STEPS_MAIN // CADENCE_MAIN} + 1 warm-up), grid_force "
+        f"{launches9[1]} (accel_of on the final state)")
+    log(f"  every pid 0..{N_MAIN - 1} in exactly one slot")
+    log(f"  Newton 3 on the final state (K6 via accel_of): net force "
+        f"({net[0]:.6g}, {net[1]:.6g}) against summed |a| ({total[0]:.6g}, "
+        f"{total[1]:.6g})")
+    del result, slab, ax, ay, live
+    for mode in ("axes", "dirs9"):
+        eng_pt = get_engine("cuda", cfg.with_(grid_rebin_mode=mode), device=dev)
+        pt = phase_times(eng_pt, state, steps=50)
+        log(f"  phase_times cuda {mode} (ms/step; {smi}): " + ", ".join(
+            f"{k} {1e3 * v:.4f}" for k, v in pt.items()))
+        del eng_pt
+    torch.cuda.empty_cache()
+    phase_line("9", "dirs9 at full width clean", t0)
+
+
 def main() -> int:
     import torch
 
@@ -454,9 +710,12 @@ def main() -> int:
     from ppsim_tpu_torch.engines import get_engine
     from ppsim_tpu_torch.harness import timed_run
     from ppsim_tpu_torch.initlib import init_particles
-    from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda, grid_step_plain
+    from ppsim_tpu_torch.ops.cuda_grid import (
+        grid_force_cuda, grid_step_cuda, grid_step_plain,
+    )
     from ppsim_tpu_torch.ops.cuda_rebin import (
-        rebin_axes_call_cuda, rebin_axes_call_plain,
+        rebin_axes_call_cuda, rebin_axes_call_plain, rebin_counts_cuda,
+        rebin_shuffle_cuda,
     )
     from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda
     from ppsim_tpu_torch.ops.cuda_rebin3 import rebin3_inplane_cuda, rebin3_ypass_cuda
@@ -472,7 +731,9 @@ def main() -> int:
                 "wrapper": wrapper}
 
     kernels = {
-        "grid_step": entry("grid_step", "grid_step.cu", "pallas_grid.py:340",
+        # K1 also replaces the two-sided _step_kernel_asym: its own design
+        "grid_step": entry("grid_step", "grid_step.cu",
+                           "pallas_grid.py:340, ppsim_tpu/ops/pallas_grid.py:305",
                            grid_step_cuda),
         "rebin_axes": entry("rebin_axes", "rebin_axes.cu",
                             "pallas_rebin.py:370", rebin_axes_call_cuda),
@@ -482,6 +743,12 @@ def main() -> int:
                                 "pallas_rebin3.py:272", rebin3_inplane_cuda),
         "rebin3_ypass": entry("rebin3_ypass", "rebin3.cu",
                               "pallas_rebin3.py:284", rebin3_ypass_cuda),
+        "grid_force": entry("grid_force", "grid_step.cu", "pallas_grid.py:184",
+                            grid_force_cuda),
+        "rebin_counts": entry("rebin_counts", "rebin_dirs9.cu",
+                              "pallas_rebin.py:99", rebin_counts_cuda),
+        "rebin_shuffle": entry("rebin_shuffle", "rebin_dirs9.cu",
+                               "pallas_rebin.py:119", rebin_shuffle_cuda),
     }
 
     # ---- phase 0: the card and the build ---------------------------------
@@ -586,45 +853,22 @@ def main() -> int:
 
     # ---- phase 2: the CLI end to end -------------------------------------
     t0 = time.perf_counter()
-    cmd = [sys.executable, "-m", "ppsim_tpu_torch", "-n", "262144", "-s",
-           str(SEED), "--steps", "200", "--engine", "cuda", "--check"]
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    for line in (proc.stdout + proc.stderr).strip().splitlines():
-        log(f"  cli: {line}")
-    if proc.returncode != 0:
-        raise RuntimeError(f"CLI exited {proc.returncode}")
-    if "Simulation Time = " not in proc.stdout:
-        raise RuntimeError("CLI printed no summary line")
-    if "Correctness check: PASS" not in proc.stdout:
-        raise RuntimeError("CLI checker did not PASS")
+    run_cli("CLI", ["-n", "262144", "-s", str(SEED), "--steps", "200",
+                    "--engine", "cuda", "--check"])
     phase_line("2", "CLI --check PASS", t0)
 
     # ---- phase 3: the main path at full width ----------------------------
     t0 = time.perf_counter()
     engine = get_engine("cuda", cfg, device=dev)
-    for k in kernels.values():
+    path3 = [kernels[k] for k in ("grid_step", "rebin_axes")]
+    for k in path3:
         k["wrapper"].launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     result, seconds = timed_run(engine, state, STEPS_MAIN, 0)
-    for k in kernels.values():
+    for k in path3:
         k["launches"] = k["wrapper"].launches
     engine.check(result)
-    slab = result.carry.slab
-    pids = slab.pid[slab.pid >= 0].long()
-    hist = torch.bincount(pids, minlength=N_MAIN)
-    if pids.numel() != N_MAIN or hist.numel() != N_MAIN or int(hist.max()) != 1:
-        raise AssertionError(
-            f"pid census: {pids.numel()} live slots, max multiplicity "
-            f"{int(hist.max())}, expected each of {N_MAIN} once")
-    pos = result.state.pos
-    if pos.shape != (N_MAIN, 2) or not bool(torch.isfinite(pos).all()):
-        raise AssertionError("final positions not finite (N, 2)")
-    # global coordinates are float32 sums xl + row*bs: allow a few ulps
-    lo, hi = float(pos.min()), float(pos.max())
-    if lo < -cfg.size * 2.0**-21 or hi > cfg.size * (1 + 2.0**-21):
-        raise AssertionError(f"final positions [{lo}, {hi}] outside the "
-                             f"box [0, {cfg.size}]")
+    check_final(result.carry.slab, result.state.pos, N_MAIN, 2, cfg.size)
     m = result.monitors
     k_step, k_rebin = kernels["grid_step"], kernels["rebin_axes"]
     warm = cfg.rebin_every  # timed_run's untimed warm-up period
@@ -646,9 +890,11 @@ def main() -> int:
     log(f"  every pid 0..{N_MAIN - 1} in exactly one slot")
     phase_line("3", "full-width main path clean", t0)
 
-    del result, engine, slab, pids, hist, pos
+    del result, engine
     torch.cuda.empty_cache()
     phase_3d(kernels, state, cfg, smi)
+    torch.cuda.empty_cache()
+    phase_2d_rest(kernels, state, cfg, seconds, smi)
 
     out = [{k: v for k, v in rec.items() if k != "wrapper"}
            for rec in kernels.values()]

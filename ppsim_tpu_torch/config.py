@@ -79,8 +79,11 @@ class SimConfig:
     # Max particles leaving one bin in one direction per rebin; excess
     # defers to the next rebin (monitored).
     evac_capacity: int = 4
-    # "axes" = the axis-factorized rebin (rows pass, then cols pass), the
-    # only mode the port implements; "dirs9" is the JAX package's ablation.
+    # 2D rebin algorithm: "axes" (default) = the axis-factorized rebin (rows
+    # pass, then cols pass; kernel K2); "dirs9" = the 9-direction dense
+    # shuffle (counts K7 + shuffle K8), kept as the ablation against it. Both
+    # are loss-free under the same acceptance contract; their deferral
+    # decisions differ.
     grid_rebin_mode: str = "axes"
     # Score lane-exact geometries (bin counts on multiples of 128) with the
     # JAX package's fitted cost model, so that both packages choose the

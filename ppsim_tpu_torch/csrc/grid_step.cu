@@ -1,9 +1,13 @@
 // K1: fused slab-grid step for Hopper (sm_90a) — stencil force, Verlet move,
-// wall fold and the per-bin max|v|^2 plane in one pass.
+// wall fold and the per-bin max|v|^2 plane in one pass. K6: the force-only
+// kernel, K1 without the move tail.
 //
 // Replaces: ppsim_tpu/ops/pallas_grid.py:_step_kernel (through
-// grid_step_pallas). Plain twin: ppsim_tpu_torch/ops/cuda_grid.py
-// grid_step_plain (grid_force_xla + the move planes).
+// grid_step_pallas) and its two-sided A/B twin _step_kernel_asym
+// (grid_step_pallas(symmetric=False), which is K1's own design: every pair
+// evaluated from both sides, then _move_tail); K6 replaces _force_kernel
+// (through grid_force_pallas). Plain twins: ppsim_tpu_torch/ops/cuda_grid.py
+// grid_step_plain (grid_force_xla + the move planes) and grid_force_plain.
 //
 // Design. One thread per bin (r, c), c fastest, so each slot-plane load of a
 // warp is 32 consecutive floats. Owner-computes and two-sided: the thread
@@ -25,7 +29,9 @@
 // kernel is bound by issue of the candidate-pair loop; skipping dead
 // neighbour slots (about half at the main path's occupancy 7.6 of 14) is the
 // one saving taken here. Newton-3 halving and per-bin occupancy bounds are
-// later work.
+// later work. K6 does the same pair loop and writes 2 planes instead of 4 +
+// the speed plane, so it is bound the same way. Both call one device
+// function for the pair loop (accum_pairs), so they cannot drift apart.
 //
 // Force law. The pair coefficient comes from pair_coef.cuh, a template
 // parameter: the repulsive law (the default) or truncated Lennard-Jones.
@@ -35,13 +41,17 @@
 // repulsive coefficient uses grid_ops.pair_coef's op order, LJ
 // physics.lj_coef_from_r2's. rsqrtf differs from the CPU rsqrt by an ulp or
 // two and FMA contraction changes the last bit of the pair sums, so parity
-// with the plain twin is allclose. The move tail uses
+// with the plain twin is allclose. Under LJ the in-cutoff test rounds r2 as
+// the twin does: the truncated law jumps at the cutoff, and a contracted r2
+// put pairs within an ulp of it on the other side. The move tail uses
 // explicitly rounded ops (no contraction) and the floored modulo of jnp.mod:
 // fmodf (exact) with the sign fix, which is bit-identical to jnp.mod and
 // torch.remainder for the multi-bounce fold.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "pair_coef.cuh"
 #include "wall_fold.cuh"
@@ -54,30 +64,15 @@ using ppsim::wall_fold;
 
 constexpr float kBig = 1.0e9f;
 
+// Sum into (ax, ay) the force on the bin's own slots (sx, sy) from all 9
+// neighbour bins x cap slots, directions in grid_ops.DIRS order (dr outer, dc
+// inner), neighbour slots ascending.
 template <int MAXC, Law LAW>
-__global__ void __launch_bounds__(128)
-grid_step_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
-                 const float* __restrict__ vx, const float* __restrict__ vy,
-                 float* __restrict__ xo, float* __restrict__ yo,
-                 float* __restrict__ vxo, float* __restrict__ vyo,
-                 float* __restrict__ sp, int cap, int R, int C, float bs,
-                 PairParams pp, float dt, float L) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= C) return;
-  const int64_t plane = (int64_t)R * C;
-  const int64_t b = (int64_t)r * C + c;
-
-  float sx[MAXC], sy[MAXC], ax[MAXC], ay[MAXC];
-#pragma unroll
-  for (int s = 0; s < MAXC; ++s) {
-    sx[s] = s < cap ? xl[s * plane + b] : kBig;
-    sy[s] = s < cap ? yl[s * plane + b] : kBig;
-    ax[s] = 0.0f;
-    ay[s] = 0.0f;
-  }
-
-  // Directions in grid_ops.DIRS order: dr outer, dc inner.
+__device__ __forceinline__ void accum_pairs(
+    const float* __restrict__ xl, const float* __restrict__ yl,
+    const float (&sx)[MAXC], const float (&sy)[MAXC], float (&ax)[MAXC],
+    float (&ay)[MAXC], int r, int c, int cap, int R, int C, int64_t plane,
+    float bs, const PairParams& pp) {
   for (int dr = -1; dr <= 1; ++dr) {
     const int rn = r + dr;
     if (rn < 0 || rn >= R) continue;
@@ -97,7 +92,14 @@ grid_step_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
           if (s < cap) {
             const float dx = __fsub_rn(xno, sx[s]);
             const float dy = __fsub_rn(yno, sy[s]);
-            const float r2 = dx * dx + dy * dy;
+            // Truncated LJ jumps at the cutoff, so its in-cutoff test takes
+            // r2 rounded as the twin rounds it (no FMA); the repulsive
+            // coefficient is 0 at the cutoff and keeps the contracted form.
+            float r2;
+            if constexpr (LAW == Law::kLJ)
+              r2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+            else
+              r2 = dx * dx + dy * dy;
             if (r2 <= pp.c2) {
               const float coef = ppsim::pair_coef<LAW>(r2, pp);
               ax[s] += coef * dx;
@@ -108,6 +110,42 @@ grid_step_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
       }
     }
   }
+}
+
+// The bin's own slots into registers (BIG past cap) and zeroed sums.
+template <int MAXC>
+__device__ __forceinline__ void load_own(const float* __restrict__ xl,
+                                         const float* __restrict__ yl,
+                                         float (&sx)[MAXC], float (&sy)[MAXC],
+                                         float (&ax)[MAXC], float (&ay)[MAXC],
+                                         int cap, int64_t plane, int64_t b) {
+#pragma unroll
+  for (int s = 0; s < MAXC; ++s) {
+    sx[s] = s < cap ? xl[s * plane + b] : kBig;
+    sy[s] = s < cap ? yl[s * plane + b] : kBig;
+    ax[s] = 0.0f;
+    ay[s] = 0.0f;
+  }
+}
+
+template <int MAXC, Law LAW>
+__global__ void __launch_bounds__(128)
+grid_step_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
+                 const float* __restrict__ vx, const float* __restrict__ vy,
+                 float* __restrict__ xo, float* __restrict__ yo,
+                 float* __restrict__ vxo, float* __restrict__ vyo,
+                 float* __restrict__ sp, int cap, int R, int C, float bs,
+                 PairParams pp, float dt, float L) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y;
+  if (c >= C) return;
+  const int64_t plane = (int64_t)R * C;
+  const int64_t b = (int64_t)r * C + c;
+
+  float sx[MAXC], sy[MAXC], ax[MAXC], ay[MAXC];
+  load_own<MAXC>(xl, yl, sx, sy, ax, ay, cap, plane, b);
+  accum_pairs<MAXC, LAW>(xl, yl, sx, sy, ax, ay, r, c, cap, R, C, plane, bs,
+                         pp);
 
   // Move tail (pallas_grid._move_tail): Verlet, wall fold, speed plane.
   const float row_off = __fmul_rn((float)r, bs);
@@ -136,34 +174,51 @@ grid_step_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
   sp[b] = spmax;
 }
 
+// K6: the accelerations of every slot, the move left out.
 template <int MAXC, Law LAW>
-void launch(const float* xl, const float* yl, const float* vx, const float* vy,
-            float* xo, float* yo, float* vxo, float* vyo, float* sp, int cap,
-            int R, int C, float bs, const PairParams& pp, float dt, float L,
-            cudaStream_t stream) {
-  const dim3 block(128);
-  const dim3 grid((C + block.x - 1) / block.x, R);
-  grid_step_kernel<MAXC, LAW><<<grid, block, 0, stream>>>(
-      xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, pp, dt, L);
+__global__ void __launch_bounds__(128)
+grid_force_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
+                  float* __restrict__ axo, float* __restrict__ ayo, int cap,
+                  int R, int C, float bs, PairParams pp) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y;
+  if (c >= C) return;
+  const int64_t plane = (int64_t)R * C;
+  const int64_t b = (int64_t)r * C + c;
+
+  float sx[MAXC], sy[MAXC], ax[MAXC], ay[MAXC];
+  load_own<MAXC>(xl, yl, sx, sy, ax, ay, cap, plane, b);
+  accum_pairs<MAXC, LAW>(xl, yl, sx, sy, ax, ay, r, c, cap, R, C, plane, bs,
+                         pp);
+#pragma unroll
+  for (int s = 0; s < MAXC; ++s) {
+    if (s < cap) {
+      axo[s * plane + b] = ax[s];
+      ayo[s * plane + b] = ay[s];
+    }
+  }
 }
 
-template <Law LAW>
-int launch_law(const float* xl, const float* yl, const float* vx,
-               const float* vy, float* xo, float* yo, float* vxo, float* vyo,
-               float* sp, int cap, int R, int C, float bs,
-               const PairParams& pp, float dt, float L, cudaStream_t s) {
-  if (cap <= 8)
-    launch<8, LAW>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, pp,
-                   dt, L, s);
-  else if (cap <= 16)
-    launch<16, LAW>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, pp,
-                    dt, L, s);
-  else if (cap <= 32)
-    launch<32, LAW>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R, C, bs, pp,
-                    dt, L, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+// Calls launch(MAXC, LAW) with the instantiation covering cap (8, 16 or 32
+// slots) and law; returns cudaGetLastError() after it (0 = launched).
+template <typename F>
+int dispatch(int cap, int law, F&& launch) {
+  auto by_cap = [&](auto lawc) {
+    if (cap <= 8)
+      launch(std::integral_constant<int, 8>{}, lawc);
+    else if (cap <= 16)
+      launch(std::integral_constant<int, 16>{}, lawc);
+    else if (cap <= 32)
+      launch(std::integral_constant<int, 32>{}, lawc);
+    else
+      return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+  };
+  if (law == (int)Law::kRepulsive)
+    return by_cap(std::integral_constant<Law, Law::kRepulsive>{});
+  if (law == (int)Law::kLJ)
+    return by_cap(std::integral_constant<Law, Law::kLJ>{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -182,13 +237,31 @@ int ppsim_grid_step(const float* xl, const float* yl, const float* vx,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
-  if (law == (int)Law::kRepulsive)
-    return launch_law<Law::kRepulsive>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp,
-                                       cap, R, C, bs, pp, dt, L, s);
-  if (law == (int)Law::kLJ)
-    return launch_law<Law::kLJ>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R,
-                                C, bs, pp, dt, L, s);
-  return (int)cudaErrorInvalidValue;
+  const dim3 block(128);
+  const dim3 grid((C + block.x - 1) / block.x, R);
+  return dispatch(cap, law, [&](auto maxc, auto lawc) {
+    grid_step_kernel<decltype(maxc)::value, decltype(lawc)::value>
+        <<<grid, block, 0, s>>>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R,
+                                C, bs, pp, dt, L);
+  });
+}
+
+// K6: accelerations (ax, ay) of the slab positions (xl, yl); arguments as
+// ppsim_grid_step's.
+int ppsim_grid_force(const float* xl, const float* yl, float* ax, float* ay,
+                     int device, int cap, int R, int C, int law, float bs,
+                     float c2, float cutoff, float mr2, float inv_mass,
+                     float sig2, float lj_k, float mass, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
+  const dim3 block(128);
+  const dim3 grid((C + block.x - 1) / block.x, R);
+  return dispatch(cap, law, [&](auto maxc, auto lawc) {
+    grid_force_kernel<decltype(maxc)::value, decltype(lawc)::value>
+        <<<grid, block, 0, s>>>(xl, yl, ax, ay, cap, R, C, bs, pp);
+  });
 }
 
 const char* ppsim_error_string(int err) {

@@ -41,56 +41,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "slab_rebin.cuh"
+
 namespace {
 
-constexpr float kBig = 1.0e9f;
+using ppsim::accepted_count;
+using ppsim::cap_mask;
+using ppsim::dir1;
+using ppsim::first_bits;
+using ppsim::nth_bit;
+using ppsim::raw_dir;
+using ppsim::Slab;
+using ppsim::SlabC;
 
-struct Slab {
-  float* x;
-  float* y;
-  float* vx;
-  float* vy;
-  int* pid;
-};
-
-struct SlabC {
-  const float* x;
-  const float* y;
-  const float* vx;
-  const float* vy;
-  const int* pid;
-};
-
-// grid_ops.slab_dirs along one axis: one-hop clamp, then the physical-grid
-// clamp at index gi of n_phys (live slots only).
-__device__ __forceinline__ int dir1(float coord, int gi, int n_phys, float inv) {
-  int d = (int)floorf(__fmul_rn(coord, inv));
-  d = max(-1, min(1, d));
-  const int lo = -min(gi, 1);
-  const int hi = min(n_phys - 1 - gi, 1);
-  return min(max(d, lo), hi);
-}
-
-__device__ __forceinline__ int raw_dir(float coord, float inv) {
-  return (int)floorf(__fmul_rn(coord, inv));
-}
-
-// The first k set bits of m.
-__device__ __forceinline__ uint32_t first_bits(uint32_t m, int k) {
-  uint32_t out = 0;
-  for (int i = 0; i < k; ++i) {
-    const uint32_t low = m & (~m + 1u);
-    out |= low;
-    m ^= low;
-  }
-  return out;
-}
-
-// Index of the n-th (0-based) set bit of m (the caller guarantees it exists).
-__device__ __forceinline__ int nth_bit(uint32_t m, int n) {
-  for (int i = 0; i < n; ++i) m &= m - 1u;
-  return __ffs(m) - 1;
-}
+constexpr float kBig = ppsim::kSlabBig;
 
 struct Masks {
   uint32_t alive = 0, neg = 0, pos = 0;
@@ -111,10 +75,6 @@ __device__ __forceinline__ Masks masks_of(const float* coord, const int* pid,
     if (d > 0) m.pos |= 1u << s;
   }
   return m;
-}
-
-__device__ __forceinline__ int accepted_count(int movers, int evac, int budget) {
-  return max(0, min(movers, min(evac, budget)));
 }
 
 // One axis pass for the bin at (r, c). axis 0 moves along rows (x), 1 along
@@ -167,8 +127,7 @@ __device__ __forceinline__ void axis_pass(const SlabC in, Slab out, int axis,
   // Destination side: entrants fill my pre-pass empty slots in empty-rank
   // order, the -1 stream (from bin+1) first, the +1 stream (from bin-1) at
   // offset cnt_m_p1.
-  const uint32_t capmask = cap == 32 ? 0xffffffffu : ((1u << cap) - 1u);
-  const uint32_t empty = ~m0.alive & capmask;
+  const uint32_t empty = ~m0.alive & cap_mask(cap);
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int d = k == 0 ? -1 : 1;

@@ -3,12 +3,15 @@
 ``grid`` — the slab-grid engine in plain PyTorch on any device (the
            correctness twin).
 ``cuda`` — the same engine with the Hopper kernels on the hot path: the fused
-           step K1 (``ops/cuda_grid.py``) every step and the rebin K2
-           (``ops/cuda_rebin.py``) every ``rebin_every``-th step. On a CPU
-           device its wrappers run their plain twins.
+           step K1 (``ops/cuda_grid.py``) every step and the rebin
+           (``ops/cuda_rebin.py``: K2 for ``grid_rebin_mode="axes"``, K7 +
+           K8 for ``"dirs9"``) every ``rebin_every``-th step; ``accel_of``,
+           the force-only API, runs K6. On a CPU device its wrappers run
+           their plain twins.
 
 Step structure: force + move (with the per-bin speed plane) every step;
-every ``rebin_every``-th step also the loss-free axis-factorized rebin.
+every ``rebin_every``-th step also the loss-free rebin: the
+axis-factorized one (default) or the 9-direction shuffle (``dirs9``).
 Between rebins the binning is stale; correct while the accumulated drift
 stays under ``(bin_side - cutoff)/2``, which ``check`` verifies from the
 ``max_speed`` monitor.
@@ -47,11 +50,12 @@ def seed_pack_monitors(overflow, capacity: int) -> Monitors:
 
 
 def require_slab_modes(config) -> None:
-    """The slab-grid family runs float32 with the axis rebin and sort pack."""
+    """The slab-grid family runs float32 with the sort pack and either rebin
+    mode (``axes`` or ``dirs9``)."""
     if config.dtype != "float32":
         raise ValueError("the slab-grid engine family is float32-only")
-    if config.grid_rebin_mode != "axes":
-        raise ValueError("the port implements grid_rebin_mode='axes' only")
+    if config.grid_rebin_mode not in ("axes", "dirs9"):
+        raise ValueError(f"unknown grid_rebin_mode {config.grid_rebin_mode!r}")
     if config.grid_pack_mode != "sort":
         raise ValueError("the port implements grid_pack_mode='sort' only")
 
@@ -97,19 +101,27 @@ class GridEngine(Engine):
                 "raise grid_bin_scale"
             )
 
-    # ---- phases (the cuda engine overrides these two) ----------------------
-    def move_phase(self, slab: SlabState):
-        """Force + integrate; returns (new_slab, max_speed)."""
+    # ---- phases (the cuda engine overrides all three) ----------------------
+    def accel_of(self, xl, yl):
+        """Accelerations ``(ax, ay)`` of the slab positions (the force-only
+        API)."""
         from ppsim_tpu_torch.physics import accel_fn_for
 
         cfg = self.config
-        accel = grid_ops.grid_force_xla(
-            slab.xl, slab.yl, self.geom, cfg.cutoff, cfg.min_r, cfg.mass,
+        return grid_ops.grid_force_xla(
+            xl, yl, self.geom, cfg.cutoff, cfg.min_r, cfg.mass,
             pair_fn=accel_fn_for(cfg))
+
+    def move_phase(self, slab: SlabState):
+        """Force + integrate; returns (new_slab, max_speed)."""
+        cfg = self.config
+        accel = self.accel_of(slab.xl, slab.yl)
         return grid_ops.grid_move(slab, accel, self.geom, cfg.dt, cfg.size)
 
     def rebin_of(self, slab: SlabState):
-        return grid_ops.grid_rebin_axes(slab, self.geom, self.config.evac_capacity)
+        fn = (grid_ops.grid_rebin_axes if self.config.grid_rebin_mode == "axes"
+              else grid_ops.grid_rebin)
+        return fn(slab, self.geom, self.config.evac_capacity)
 
     # ---- drop-detected capacity escalation -------------------------------
     # Auto-capacity runs self-heal: a run that dropped particles (or whose
@@ -182,9 +194,18 @@ class GridEngine(Engine):
 @register_engine
 class CudaGridEngine(GridEngine):
     """The slab-grid engine on the Hopper kernels (the JAX package's
-    ``pallas`` engine): ``move_phase`` runs K1, ``rebin_of`` runs K2."""
+    ``pallas`` engine): ``move_phase`` runs K1, ``accel_of`` K6, and
+    ``rebin_of`` K2 (``axes``) or K7 + K8 (``dirs9``)."""
 
     name = "cuda"
+
+    def accel_of(self, xl, yl):
+        from ppsim_tpu_torch.ops.cuda_grid import grid_force_cuda
+
+        cfg = self.config
+        return grid_force_cuda(xl, yl, self.geom, cfg.cutoff, cfg.min_r,
+                               cfg.mass, law=cfg.force_law,
+                               law_params=cfg.law_params)
 
     def move_phase(self, slab: SlabState):
         from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda
@@ -199,6 +220,8 @@ class CudaGridEngine(GridEngine):
         return SlabState(xl, yl, vx, vy, slab.pid), torch.sqrt(speed2.max())
 
     def rebin_of(self, slab: SlabState):
-        from ppsim_tpu_torch.ops.cuda_rebin import grid_rebin_axes_cuda
+        from ppsim_tpu_torch.ops.cuda_rebin import grid_rebin_axes_cuda, grid_rebin_cuda
 
-        return grid_rebin_axes_cuda(slab, self.geom, self.config.evac_capacity)
+        fn = (grid_rebin_axes_cuda if self.config.grid_rebin_mode == "axes"
+              else grid_rebin_cuda)
+        return fn(slab, self.geom, self.config.evac_capacity)

@@ -9,6 +9,7 @@ copy of the initial state happen before the timer starts; the timer stops
 after ``torch.cuda.synchronize()``.
 
     python -m ppsim_tpu_torch -n 262144 -s 42 --steps 200 --engine cuda --check
+    python -m ppsim_tpu_torch -n 20971520 -s 42 --engine cuda --grid-rebin-mode dirs9
     python -m ppsim_tpu_torch -n 20971520 --ndim 3 --density 7e-6 \
         --force-law lj --dt 1e-4 -s 42 --engine cuda3d
 """
@@ -16,6 +17,7 @@ after ``torch.cuda.synchronize()``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -25,6 +27,7 @@ from ppsim_tpu_torch.config import SimConfig
 from ppsim_tpu_torch.engines import engine_names, get_engine
 from ppsim_tpu_torch.initlib import init_particles
 from ppsim_tpu_torch.io import MetricsWriter, write_trajectory
+from ppsim_tpu_torch.profiling import trace
 from ppsim_tpu_torch.state import ParticleState
 
 __all__ = ["main", "timed_run", "timed_run_repeats", "build_parser",
@@ -85,6 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="3D engines: park the t=0 packing overflow one bin "
                         "over instead of raising capacity (default auto: on "
                         "with auto capacity)")
+    p.add_argument("--grid-rebin-mode", default=None, choices=("dirs9", "axes"),
+                   help="2D grid engines: rebin algorithm (axes = the "
+                        "axis-factorized default; dirs9 = the 9-direction "
+                        "shuffle, the ablation)")
     p.add_argument("--grid-snap-lanes", type=int, default=None, choices=(0, 1),
                    help="score lane-exact bin counts with the geometry cost "
                         "model (default on; see SlabGeometry.for_config)")
@@ -94,6 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "3D) or auto (reference in 2D, fast in 3D; a random "
                         "seed for -s 0)")
     p.add_argument("--metrics", type=str, default=None, help="append a JSONL metrics record")
+    p.add_argument("--trace", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the timed run "
+                        "to DIR/trace.json")
     return p
 
 
@@ -166,6 +176,8 @@ def config_from_args(args) -> SimConfig:
     kw = {k: v for k, v in pairs if v is not None}
     if args.grid_snap_lanes is not None:
         kw["grid_snap_lanes"] = bool(args.grid_snap_lanes)
+    if args.grid_rebin_mode is not None:
+        kw["grid_rebin_mode"] = args.grid_rebin_mode
     if args.grid3_spill is not None:
         kw["grid3_spill"] = bool(args.grid3_spill)
     return SimConfig(num_parts=args.n, ndim=args.ndim,
@@ -188,7 +200,8 @@ def main(argv=None) -> int:
     engine = get_engine(engine_name, config, device=args.device)
     state = init_particles(config, seed=args.s, method=args.init,
                            device=engine.device)
-    result, seconds = timed_run(engine, state, nsteps, effective_savefreq)
+    with trace(args.trace) if args.trace else contextlib.nullcontext():
+        result, seconds = timed_run(engine, state, nsteps, effective_savefreq)
     engine.check(result)
 
     if args.o:

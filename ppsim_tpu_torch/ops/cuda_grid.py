@@ -1,11 +1,18 @@
-"""Fused slab-grid step: the Hopper kernel K1 and its plain twin (port of
-:mod:`ppsim_tpu.ops.pallas_grid`, ``grid_step_pallas``).
+"""Slab-grid force kernels and their plain twins (port of
+:mod:`ppsim_tpu.ops.pallas_grid`).
 
-:func:`grid_step_cuda` launches ``csrc/grid_step.cu`` (force, Verlet move,
-wall fold and the per-bin max|v|^2 plane in one pass) on CUDA tensors and
-runs :func:`grid_step_plain` on CPU tensors; a tensor on any other device
-raises. There is no fallback from the kernel to the plain version. Both take
-the force law (``"repulsive"`` or ``"lj"``, the kernels' ``pair_coef.cuh``).
+- :func:`grid_step_cuda` launches K1 (``csrc/grid_step.cu``: force, Verlet
+  move, wall fold and the per-bin max|v|^2 plane in one pass; it replaces
+  ``grid_step_pallas`` with either ``symmetric`` setting, the two-sided form
+  being K1's own design); plain twin :func:`grid_step_plain`.
+- :func:`grid_force_cuda` launches K6 (the same file: the accelerations
+  only; it replaces ``grid_force_pallas``); plain twin
+  :func:`grid_force_plain`.
+
+On CUDA tensors a wrapper launches its kernel; on CPU tensors it runs the
+plain twin; a tensor on any other device raises. There is no fallback from
+a kernel to the plain version. All take the force law (``"repulsive"`` or
+``"lj"``, the kernels' ``pair_coef.cuh``).
 """
 
 from __future__ import annotations
@@ -17,8 +24,8 @@ from ppsim_tpu_torch.ops.binning import BIG
 from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, f32, grid_force_xla, move_planes
 from ppsim_tpu_torch.physics import lj_coef_from_r2
 
-__all__ = ["grid_step_cuda", "grid_step_plain", "MAX_CAP", "LAWS", "pair_args",
-           "kernel_coef_of"]
+__all__ = ["grid_step_cuda", "grid_step_plain", "grid_force_cuda",
+           "grid_force_plain", "MAX_CAP", "LAWS", "pair_args", "kernel_coef_of"]
 
 # Largest slot capacity the kernel is instantiated for (csrc/grid_step.cu).
 MAX_CAP = 32
@@ -65,21 +72,25 @@ def kernel_coef_of(law: str, cutoff, min_r, mass, law_params=()):
     return repulsive
 
 
+def grid_force_plain(xl, yl, geom: SlabGeometry, cutoff, min_r, mass,
+                     law="repulsive", law_params=()):
+    """Plain twin of K6: ``grid_force_xla`` with the kernels' pair
+    coefficient (:func:`kernel_coef_of`), returning ``(ax, ay)``."""
+    coef_of = kernel_coef_of(law, cutoff, min_r, mass, law_params)
+
+    def pair_fn(dx, dy):
+        coef = coef_of(dx * dx + dy * dy)
+        return coef * dx, coef * dy
+    return grid_force_xla(xl, yl, geom, cutoff, min_r, mass, pair_fn=pair_fn)
+
+
 def grid_step_plain(xl, yl, vx, vy, geom: SlabGeometry, cutoff, min_r, mass,
                     dt, size, law="repulsive", law_params=()):
-    """Plain twin of K1: ``grid_force_xla`` + the move, returning
+    """Plain twin of K1: :func:`grid_force_plain` + the move, returning
     ``(xl', yl', vx', vy', speed2)`` with ``speed2`` the (R, C) plane of
     per-bin max |v|^2. Like the kernel (and the TPU kernel), slot aliveness
     comes from the position sentinel: dead slots hold exactly BIG."""
-    _require_law(law)
-    pair_fn = None
-    if law == "lj":
-        coef_of = kernel_coef_of(law, cutoff, min_r, mass, law_params)
-
-        def pair_fn(dx, dy):
-            coef = coef_of(dx * dx + dy * dy)
-            return coef * dx, coef * dy
-    ax, ay = grid_force_xla(xl, yl, geom, cutoff, min_r, mass, pair_fn=pair_fn)
+    ax, ay = grid_force_plain(xl, yl, geom, cutoff, min_r, mass, law, law_params)
     xl, yl, vx, vy, speed2 = move_planes(xl, yl, vx, vy, ax, ay,
                                          xl < 0.5 * BIG, geom, dt, size)
     return xl, yl, vx, vy, speed2.amax(dim=0)
@@ -125,3 +136,29 @@ def grid_step_cuda(xl, yl, vx, vy, geom: SlabGeometry, cutoff, min_r, mass,
 
 
 grid_step_cuda.launches = 0
+
+
+def grid_force_cuda(xl, yl, geom: SlabGeometry, cutoff, min_r, mass,
+                    law="repulsive", law_params=()):
+    """Accelerations ``(ax, ay)``, same contract as :func:`grid_force_plain`.
+    CUDA tensors launch K6 (``grid_force_cuda.launches`` counts the
+    launches); CPU tensors run the plain twin."""
+    if xl.device.type == "cpu":
+        return grid_force_plain(xl, yl, geom, cutoff, min_r, mass, law,
+                                law_params)
+    _check_planes((xl, yl), geom.shape)
+    cap, R, C = geom.shape
+    if cap > MAX_CAP:
+        raise ValueError(f"capacity {cap} > {MAX_CAP}, the kernel's largest")
+    law_id, *consts = pair_args(law, cutoff, min_r, mass, law_params)
+    ax, ay = torch.empty_like(xl), torch.empty_like(yl)
+    err = _build.kernels().ppsim_grid_force(
+        xl.data_ptr(), yl.data_ptr(), ax.data_ptr(), ay.data_ptr(),
+        xl.device.index, cap, R, C, law_id, f32(geom.bin_size), *consts,
+        torch.cuda.current_stream(xl.device).cuda_stream)
+    _build.check_launch(err, "grid_force kernel")
+    grid_force_cuda.launches += 1
+    return ax, ay
+
+
+grid_force_cuda.launches = 0

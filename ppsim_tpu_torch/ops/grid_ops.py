@@ -6,7 +6,7 @@ shape ``(capacity, R, C)`` (slot-slab ``j`` is a dense (R, C) plane),
 positions are bin-local, and ``pid < 0`` marks an empty slot, whose position
 parks at the ``BIG`` sentinel with zero velocity. Forces are the 3x3 stencil
 as shifted planes; rebinning is lazy (every ``rebin_every`` steps) and
-loss-free (the axis-factorized shuffle below).
+loss-free (the axis-factorized shuffle below, or the 9-direction one).
 
 These are the plain twins of the Hopper kernels (``ops/cuda_grid.py``,
 ``ops/cuda_rebin.py``) and run on any device. Every float32 constant is the
@@ -36,7 +36,11 @@ __all__ = [
     "grid_force_xla",
     "grid_move",
     "slab_dirs",
+    "rebin_counts",
+    "rebin_shuffle",
+    "grid_rebin",
     "rebin_axes_planes",
+    "monitor_planes",
     "monitors_of_counts",
     "grid_rebin_axes",
 ]
@@ -345,6 +349,110 @@ def slab_dirs(state: SlabState, geom: SlabGeometry):
     return dirx, diry, far, alive
 
 
+def rebin_counts(state: SlabState, geom: SlabGeometry):
+    """The dirs9 count stack and the far-move flags: ``(counts, far)`` with
+    ``counts`` the int32 (9, R, C) planes, [d] = live slots moving toward
+    ``DIRS[d]`` and [4] (the stay direction) = the live count."""
+    dirx, diry, far, alive = slab_dirs(state, geom)
+    planes = [(alive if (dr, dc) == (0, 0)
+               else alive & (dirx == dr) & (diry == dc)).sum(dim=0, dtype=torch.int32)
+              for dr, dc in DIRS]
+    return torch.stack(planes), far
+
+
+def rebin_shuffle(state: SlabState, counts, geom: SlabGeometry, evac_cap: int):
+    """The loss-free 9-direction dense shuffle, given the state's
+    :func:`rebin_counts`. Returns ``(SlabState, rejected)`` with ``rejected``
+    the int32 (R, C) plane of leavers kept in place. The plain twin of the
+    shuffle kernel K8 (ops/cuda_rebin.py).
+
+    Each (source bin, direction) leaver group is admitted to its destination
+    only up to the destination's pre-rebin empty-slot budget, under a
+    deterministic priority (DIRS order, then rank within the group): the
+    leaver of rank ``k`` toward ``d`` is accepted iff ``k < evac_cap`` and
+    ``off[d] + k < F`` at the destination, where ``F`` is its pre-rebin free
+    slot count and ``off[d]`` the entrants queued there by the groups before
+    ``d``. Source and destination evaluate the same predicate from the shared
+    count planes, so nothing is ever dropped and no atomics are needed; a
+    rejected leaver stays where it is and retries at the next rebin. The
+    e-th accepted entrant lands in the destination's empty slot of pre-rebin
+    empty-rank ``off[d] + e``.
+    """
+    cap = geom.capacity
+    bs = f32(geom.bin_size)
+    i32 = torch.int32
+    dirx, diry, _, alive = slab_dirs(state, geom)
+    dcode = (dirx + 1) * 3 + (diry + 1)
+    F = cap - counts[4]  # pre-rebin empty slots per bin
+
+    # off[d](b): entrants queued at destination b by the groups before d.
+    off = {}
+    acc = torch.zeros_like(F)
+    for d, (dr, dc) in enumerate(DIRS):
+        if (dr, dc) == (0, 0):
+            continue
+        off[d] = acc
+        acc = acc + _shifted(counts[d], -dr, -dc, fill=0)
+
+    fields = (state.xl - dirx.to(torch.float32) * bs,
+              state.yl - diry.to(torch.float32) * bs, state.vx, state.vy,
+              state.pid)
+    FILLS = (BIG, BIG, 0.0, 0.0, -1)
+    outs = [[f[s] for s in range(cap)] for f in state]
+    is_empty = state.pid < 0  # pre-rebin emptiness: the only slots entrants use
+    empty_rank = torch.cumsum(is_empty.to(i32), dim=0, dtype=i32) - is_empty.to(i32)
+
+    rejected = torch.zeros_like(F)
+    for d, (dr, dc) in enumerate(DIRS):
+        if (dr, dc) == (0, 0):
+            continue
+        mask = alive & (dcode == d)
+        # source side: acceptance against the destination's budget
+        off_at_dest = _shifted(off[d], dr, dc, fill=0)
+        F_at_dest = _shifted(F, dr, dc, fill=0)
+        rank = torch.zeros_like(F)
+        accepted = []
+        for j in range(cap):
+            mj = mask[j]
+            acc_j = mj & (rank < evac_cap) & (off_at_dest + rank < F_at_dest)
+            accepted.append((acc_j, rank))
+            rank = rank + mj.to(i32)
+            rejected = rejected + (mj & ~acc_j).to(i32)
+            for k in range(5):
+                outs[k][j] = torch.where(acc_j, FILLS[k], outs[k][j])
+        # destination side: insert group d (sources at -d) at empty-rank off+e
+        for e in range(evac_cap):
+            cand = [torch.full_like(F, fill, dtype=f.dtype)
+                    for f, fill in zip(fields, FILLS)]
+            for j in range(cap):
+                acc_j, rank_j = accepted[j]
+                sel = acc_j & (rank_j == e)
+                cand = [torch.where(sel, f[j], c) for f, c in zip(fields, cand)]
+            cand = [_shifted(c, -dr, -dc, fill=fill) for c, fill in zip(cand, FILLS)]
+            valid = cand[4] >= 0
+            idx = off[d] + e
+            for s in range(cap):
+                sel = valid & is_empty[s] & (empty_rank[s] == idx)
+                for k in range(5):
+                    outs[k][s] = torch.where(sel, cand[k], outs[k][s])
+
+    return SlabState(*(torch.stack(o) for o in outs)), rejected
+
+
+def grid_rebin(state: SlabState, geom: SlabGeometry, evac_cap: int):
+    """The 9-direction rebin with the JAX package's monitors
+    (``grid_ops.grid_rebin``): ``deferred`` counts the leavers rejected
+    before the shuffle, ``dropped`` = particles lost + far movers (flagged on
+    the pre-rebin state), ``max_occupancy`` after the rebin. Sums in int64."""
+    counts, far = rebin_counts(state, geom)
+    new, rejected = rebin_shuffle(state, counts, geom, evac_cap)
+    i64 = torch.int64
+    occ = (new.pid >= 0).sum(dim=0, dtype=torch.int32)
+    dropped = counts[4].sum(dtype=i64) - occ.sum(dtype=i64) + far.sum(dtype=i64)
+    return new, RebinMonitors(occ.max(), dropped.to(torch.int32),
+                              rejected.sum(dtype=i64).to(torch.int32))
+
+
 def _axis_pass2(state: SlabState, geom: SlabGeometry, evac_cap: int, axis: int):
     """One 1-D rebin pass along ``axis`` (0 = rows/x, 1 = cols/y): movers
     take one hop under the loss-free acceptance contract, rejected movers
@@ -432,18 +540,24 @@ def rebin_axes_planes(state: SlabState, geom: SlabGeometry, evac_cap: int):
     PRE-rebin state: each pass clamps to one hop, so afterwards they would
     look like benign movers. ``resid`` counts movers left after both passes.
     """
-    i32 = torch.int32
-    _, _, far0, alive0 = slab_dirs(state, geom)
     st = _axis_pass2(state, geom, evac_cap, 0)
     st = _axis_pass2(st, geom, evac_cap, 1)
-    dx2, dy2, _, alive2 = slab_dirs(st, geom)
-    cnt = torch.stack([
+    return st, monitor_planes(state, st, geom)
+
+
+def monitor_planes(pre: SlabState, post: SlabState, geom: SlabGeometry):
+    """The int32 (4, R, C) monitor planes of a rebin from ``pre`` to
+    ``post``: ``[far_pre, alive_pre, alive_post, resid]``, ``resid`` = live
+    slots of ``post`` still pointing out of their bin."""
+    i32 = torch.int32
+    _, _, far0, alive0 = slab_dirs(pre, geom)
+    dx2, dy2, _, alive2 = slab_dirs(post, geom)
+    return torch.stack([
         far0.sum(dim=0, dtype=i32),
         alive0.sum(dim=0, dtype=i32),
         alive2.sum(dim=0, dtype=i32),
         (alive2 & ((dx2 != 0) | (dy2 != 0))).sum(dim=0, dtype=i32),
     ])
-    return st, cnt
 
 
 def monitors_of_counts(cnt) -> RebinMonitors:

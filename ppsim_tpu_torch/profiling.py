@@ -1,21 +1,120 @@
-"""Where the device time goes: a ``torch.profiler`` window over engine steps.
+"""Where the device time goes: per-phase timing and profiler windows (port
+of :mod:`ppsim_tpu.profiling`).
 
-:func:`profile_steps` runs ``nsteps`` global steps of an engine from a carry
-under ``torch.profiler`` (CPU and CUDA activities) and returns the device
-time of every kernel by name, the window's wall time (host clock around
-work that ends in ``torch.cuda.synchronize()``) and the device idle share,
-``1 - kernel time / wall time``. It needs a CUDA device: a window on the CPU
-measures nothing of the card.
+- :func:`phase_times` — phase costs of a slab-family engine by *variant
+  subtraction*: time the step loop with a phase disabled and diff the
+  marginal step time (the reference's vecmp.cpp t1..t4 phase table,
+  part1/vecmp.cpp:25-32,178-183). :func:`timeit_steps` gives the marginal
+  seconds per step, fenced by ``torch.cuda.synchronize()``.
+- :func:`profile_steps` runs ``nsteps`` global steps of an engine from a
+  carry under ``torch.profiler`` (CPU and CUDA activities) and returns the
+  device time of every kernel by name, the window's wall time (host clock
+  around work that ends in ``torch.cuda.synchronize()``) and the device idle
+  share, ``1 - kernel time / wall time``. It needs a CUDA device: a window on
+  the CPU measures nothing of the card.
+- :func:`trace` — a ``torch.profiler`` context that writes a Chrome trace
+  (the CLI's ``--trace``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
 
-__all__ = ["ProfileWindow", "profile_steps"]
+__all__ = ["ProfileWindow", "profile_steps", "phase_times", "timeit_steps", "trace"]
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timeit_steps(step_fn, carry, steps_a: int = 10, steps_b: int = 60,
+                 reps: int = 3, device="cuda") -> float:
+    """Marginal seconds per step of ``step_fn(carry, i)`` (global steps ``i
+    = 1, 2, ...``) on ``device``: the best of ``reps`` runs of each of two
+    lengths, differenced, so per-run set-up cancels. Each run starts from
+    ``carry`` after one untimed run of each length."""
+    def run(n: int) -> float:
+        _sync(device)
+        t0 = time.perf_counter()
+        c = carry
+        for i in range(1, n + 1):
+            c = step_fn(c, i)
+        _sync(device)
+        return time.perf_counter() - t0
+
+    run(steps_a)
+    run(steps_b)
+    best_a = min(run(steps_a) for _ in range(reps))
+    best_b = min(run(steps_b) for _ in range(reps))
+    return max(best_b - best_a, 0.0) / (steps_b - steps_a)
+
+
+def phase_times(engine, state, steps: int = 50) -> Dict[str, float]:
+    """Per-phase seconds/step of a slab-family engine (2D or 3D):
+    ``{"step", "force+move", "rebin", "overhead"}``. Each phase cost is the
+    marginal slowdown against a variant with that phase disabled:
+    ``move_phase`` (the fused force + move) or ``rebin_of``, patched on the
+    instance for the variant's runs. Any other engine raises TypeError: the
+    port has no particle-list engine, whose phase seam differs."""
+    from ppsim_tpu_torch.engines.grid import GridEngine
+    from ppsim_tpu_torch.ops.grid_ops import RebinMonitors
+
+    if not isinstance(engine, GridEngine):
+        raise TypeError(f"engine {engine.name!r} has no phase seam: "
+                        "phase_times needs a slab-family engine")
+    dev = engine.device
+    carry = engine.init_carry(state.to(dev))
+
+    def timed() -> float:
+        return timeit_steps(engine.step, carry, 10, 10 + steps, device=dev)
+
+    def timed_without(name: str, stub) -> float:
+        own = vars(engine).get(name)
+        setattr(engine, name, stub)
+        try:
+            return timed()
+        finally:
+            if own is None:
+                delattr(engine, name)
+            else:
+                setattr(engine, name, own)
+
+    t_full = timed()
+    zf = torch.zeros((), dtype=torch.float32, device=dev)
+    zi = torch.zeros((), dtype=torch.int32, device=dev)
+    t_nomove = timed_without("move_phase", lambda slab: (slab, zf))
+    t_norebin = timed_without("rebin_of",
+                              lambda slab: (slab, RebinMonitors(zi, zi, zi)))
+    force_move = max(t_full - t_nomove, 0.0)
+    rebin = max(t_full - t_norebin, 0.0)
+    return {
+        "step": t_full,
+        "force+move": force_move,
+        "rebin": rebin,
+        "overhead": max(t_full - force_move - rebin, 0.0),
+    }
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``torch.profiler`` over the block (CPU activity, and CUDA where a GPU
+    is present), written to ``log_dir/trace.json`` as a Chrome trace (open
+    it in chrome://tracing or Perfetto)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class ProfileWindow(NamedTuple):

@@ -1,5 +1,6 @@
 """The kernel wrappers of ppsim_tpu_torch (K1 fused step, K2 rebin, K3 3D
-fused step, K4 + K5 3D rebin) and their build. This file imports no JAX, so it also runs on a GPU host without it:
+fused step, K4 + K5 3D rebin, K6 force-only, K7 + K8 dirs9 rebin) and their
+build. This file imports no JAX, so it also runs on a GPU host without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
@@ -22,9 +23,14 @@ from ppsim_tpu_torch.convert import slab3_state_from_numpy, slab_state_from_nump
 from ppsim_tpu_torch.engines import get_engine
 from ppsim_tpu_torch.initlib import init_particles
 from ppsim_tpu_torch.ops import grid3d_ops, grid_ops
-from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda, grid_step_plain
+from ppsim_tpu_torch.ops.cuda_grid import (
+    grid_force_cuda, grid_force_plain, grid_step_cuda, grid_step_plain,
+)
 from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
-from ppsim_tpu_torch.ops.cuda_rebin import rebin_axes_call_cuda, rebin_axes_call_plain
+from ppsim_tpu_torch.ops.cuda_rebin import (
+    rebin_axes_call_cuda, rebin_axes_call_plain, rebin_counts_cuda, rebin_counts_plain,
+    rebin_shuffle_cuda, rebin_shuffle_plain,
+)
 from ppsim_tpu_torch.ops.cuda_rebin3 import (
     rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_ypass_cuda, rebin3_ypass_plain,
 )
@@ -32,11 +38,16 @@ from ppsim_tpu_torch.testing import (
     STRESS_GEOMETRY, STRESS_GEOMETRY3, stress_slab, stress_slab3,
 )
 
-# K1 against its plain twin: same summation order, but rsqrtf and FMA
-# contraction may move the last bits of the pair sums.
+# K1 and K6 against their plain twins: same summation order, but rsqrtf and
+# FMA contraction may move the last bits of the pair sums. K6's outputs are
+# the sums themselves, where close pairs' terms (up to ~1e7 on these slabs)
+# cancel: its absolute tolerance is 1e-6 of the largest |a|.
 RTOL, ATOL = 1e-5, 1e-6
+ACC_ATOL = 1e-6
 TINY = SimConfig(num_parts=200, grid_bin_scale=3.0, grid_capacity=6,
                  evac_capacity=2, rebin_every=4)
+# n = 262,144: 229 x 229 bins padded to 232 x 256, capacity 11.
+PAD2 = SimConfig(num_parts=262_144)
 # 3D: the JAX package's BASE3 test config, and n = 262,144 (41^3 bins padded
 # to 41 x 48 x 128, auto capacity 10).
 TINY3 = SimConfig(num_parts=500, ndim=3, density=7e-6, grid3_capacity=8,
@@ -137,6 +148,37 @@ def test_rebin_wrapper_runs_plain_twin_on_cpu_only():
         rebin_axes_call_cuda(meta, g, 2)
 
 
+def test_force_wrapper_runs_plain_twin_on_cpu_only():
+    geom, slab = _drifted_slab(TINY, 0.45, 0)
+    before = grid_force_cuda.launches
+    got = grid_force_cuda(*slab[:2], *_step_args(TINY, geom)[:4])
+    want = grid_force_plain(*slab[:2], *_step_args(TINY, geom)[:4])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert grid_force_cuda.launches == before
+    meta = [torch.empty(geom.shape, device="meta") for _ in range(2)]
+    with pytest.raises(ValueError, match="CUDA"):
+        grid_force_cuda(*meta, *_step_args(TINY, geom)[:4])
+
+
+def test_dirs9_wrappers_run_plain_twins_on_cpu_only():
+    g = STRESS_GEOMETRY
+    slab = stress_slab(g, seed=1, far_movers=1)
+    before = (rebin_counts_cuda.launches, rebin_shuffle_cuda.launches)
+    counts = rebin_counts_cuda(slab, g)
+    assert torch.equal(counts, rebin_counts_plain(slab, g))
+    assert counts.shape == (9, *g.shape[1:]) and counts.dtype == torch.int32
+    out, cnt = rebin_shuffle_cuda(slab, counts, g, 2)
+    want, wcnt = rebin_shuffle_plain(slab, counts, g, 2)
+    for a, b in zip((*out, cnt), (*want, wcnt)):
+        assert torch.equal(a, b)
+    assert (rebin_counts_cuda.launches, rebin_shuffle_cuda.launches) == before
+    meta = grid_ops.SlabState(*(torch.empty(g.shape, device="meta") for _ in range(4)),
+                              torch.empty(g.shape, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        rebin_counts_cuda(meta, g)
+
+
 def test_step3_wrapper_runs_plain_twin_on_cpu_only():
     cfg = TINY3.with_(**LJ)
     geom, slab = _drifted_slab3(cfg, 0.2, 0)
@@ -234,10 +276,54 @@ def test_rebin_kernel_bitwise_on_packed_slab(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_engine_matches_grid_engine_on_card(cuda):
-    st = init_particles(TINY, seed=42)
-    a = get_engine("cuda", TINY, device=cuda).run(st, nsteps=24)
-    b = get_engine("grid", TINY, device=cuda).run(st, nsteps=24)
+@pytest.mark.parametrize("law", ["repulsive", "lj"])
+@pytest.mark.parametrize("cfg,frac", [(TINY, 0.3), (PAD2, 0.2)],
+                         ids=["tiny", "padded"])
+def test_force_kernel_matches_plain_on_card(cuda, cfg, frac, law):
+    cfg = cfg.with_(**LJ) if law == "lj" else cfg
+    geom, slab = _drifted_slab(cfg, frac, 6, device=cuda)
+    args = (*slab[:2], geom, cfg.cutoff, cfg.min_r, cfg.mass, law, cfg.law_params)
+    before = grid_force_cuda.launches
+    got = grid_force_cuda(*args)
+    assert grid_force_cuda.launches == before + 1
+    want = grid_force_plain(*args)
+    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    assert scale > 1.0  # forces act
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ACC_ATOL * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tiny", "padded", "contention"])
+def test_dirs9_kernels_bitwise_on_card(cuda, case):
+    if case == "contention":
+        geom, evac = STRESS_GEOMETRY, 2
+        slab = stress_slab(geom, seed=3, far_movers=2, device=cuda)
+    else:
+        cfg = dataclasses.replace(TINY, num_parts=3000) if case == "tiny" else PAD2
+        evac = cfg.evac_capacity
+        geom, slab = _drifted_slab(cfg, 0.8, 7, device=cuda)
+    before = (rebin_counts_cuda.launches, rebin_shuffle_cuda.launches)
+    counts = rebin_counts_cuda(slab, geom)
+    assert torch.equal(counts, rebin_counts_plain(slab, geom))
+    out, cnt = rebin_shuffle_cuda(slab, counts, geom, evac)
+    want, wcnt = rebin_shuffle_plain(slab, counts, geom, evac)
+    for a, b in zip((*out, cnt), (*want, wcnt)):
+        assert torch.equal(a, b)
+    assert (rebin_counts_cuda.launches, rebin_shuffle_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert int((out.pid != slab.pid).sum()) > 0
+    if case == "contention":
+        assert int(grid_ops.monitors_of_counts(cnt).dropped) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["axes", "dirs9"])
+def test_cuda_engine_matches_grid_engine_on_card(cuda, mode):
+    cfg = TINY.with_(grid_rebin_mode=mode)
+    st = init_particles(cfg, seed=42)
+    a = get_engine("cuda", cfg, device=cuda).run(st, nsteps=24)
+    b = get_engine("grid", cfg, device=cuda).run(st, nsteps=24)
     torch.testing.assert_close(a.state.pos, b.state.pos, rtol=0, atol=1e-5)
     assert int(a.monitors.max_bin_count) == int(b.monitors.max_bin_count)
     assert int(a.monitors.migrate_dropped) == int(b.monitors.migrate_dropped) == 0

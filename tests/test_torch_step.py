@@ -20,9 +20,10 @@ from ppsim_tpu_torch.convert import slab_state_from_numpy
 from ppsim_tpu_torch.ops import grid_ops as T
 from ppsim_tpu_torch.ops.cuda_grid import grid_step_plain
 
-# The Pallas kernel is symmetric (Newton 3) with another op order in the
-# pair coefficient, so the sums differ in the last bits: positions to 1e-6
-# absolute, velocities (up to ~3e3 in the bounce case) to 1e-5 relative.
+# The Pallas kernels (Newton 3, or two-sided summing dr, j, dc) have another
+# op order in the pair sums, so the sums differ in the last bits: positions
+# to 1e-6 absolute, velocities (up to ~3e3 in the bounce case) to 1e-5
+# relative.
 RTOL, ATOL = 1e-5, 1e-6
 
 
@@ -53,14 +54,19 @@ def _tiny_slab(bounce: bool):
     return cfg, jg, arrays
 
 
-@pytest.mark.parametrize("bounce", [False, True])
-def test_step_plain_matches_pallas_interpret(bounce):
+@pytest.mark.parametrize("bounce,symmetric", [(False, True), (True, True),
+                                              (False, False)],
+                         ids=["False", "True", "asym"])
+def test_step_plain_matches_pallas_interpret(bounce, symmetric):
+    """K1's twin against the TPU step kernel: the Newton-3 kernel
+    (_step_kernel) and, under ``symmetric=False``, the two-sided one
+    (_step_kernel_asym), whose design K1 shares."""
     cfg, jg, arrays = _tiny_slab(bounce)
     tg = T.SlabGeometry(**dataclasses.asdict(jg))
     ts = slab_state_from_numpy(*arrays)
     args = (cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size)
     want = grid_step_pallas(*(jnp.asarray(a) for a in arrays[:4]), jg, *args,
-                            interpret=True)
+                            interpret=True, symmetric=symmetric)
     got = grid_step_plain(*ts[:4], tg, *args)
     assert float(np.abs(np.asarray(want[2]) - arrays[2]).max()) > 1e-3  # forces
     for name, g, w in zip(("xl", "yl", "vx", "vy", "speed2"), got, want):
