@@ -9,32 +9,40 @@
 // Layout. Fields are (cap, Y, X, Z) float32 planes, z fastest; bin
 // b = (y*X + x)*Z + z, slot s at s*plane + b. Dead slots hold exactly BIG.
 //
-// Design. Owner-computes and two-sided, like K1: every slot's force is the sum
-// over the 27 neighbour bins (DIRS3 order: dy, dx, dz ascending) and their
-// slots (ascending) of the pair term, the plain twin's order, with each
-// product and sum rounded as the twin's (no FMA contraction). The TPU kernel
-// evaluates each pair once and carries the y+1 reactions to the next y-slab
-// through a whole-plane VMEM spill that relies on Pallas running grid steps
-// in order; CUDA blocks run concurrently, so that would race. Owner-computes
-// needs no atomics and is deterministic. Neighbours are masked
-// at the physical edges (xs, zs; y at the array edge), not at the padded
-// extents; dead neighbour slots contribute exact zeros and are skipped.
-//
-// Thread mapping: one thread per bin, z fastest (a warp reads 32
-// consecutive floats of a slot plane), holding its slots' coordinates and
-// accumulators in registers (cap templated to 8/12/16/32). It loads each
-// neighbour slot once and tests it against its own live slots up to the last
-// live one. Register pressure grows as 6 x MAXC: 128 registers at MAXC 16
-// with a few bytes of spill for LJ (ptxas). One thread per (slot, bin) needs
-// 64-80 registers but loads every neighbour slot once per live own slot; it
-// measured 2x slower at the stretch geometry (PERF.md), so it is not kept.
-//
 // Bound. Memory: 6 planes read and 6 written once plus the speed plane,
 // 12 x cap x plane x 4 B (3.4 GB at the 20.97M stretch geometry, ~1 ms at
-// 3.35 TB/s). Operations: ~10 flops per candidate pair (live own slot x live
-// neighbour slot in the 27 bins), ~2.2G candidate pairs per step there,
-// owner-computes doing each pair from both sides; the candidate loop's issue
-// rate, not the bytes, is what this design pays for.
+// 3.35 TB/s). Operations: each live particle tests every live slot of its
+// 27 neighbour bins (~2.2G ordered candidate pairs per step there, of which
+// under 1% lie inside the cutoff: the bins are 2-4 cutoffs wide), ~10 float
+// ops each. So the issue rate of the distance tests, and what they cost in
+// addressing and divergence, is what bounds the kernel, not the force law.
+// Tensor cores have no part: each test is an elementwise float32 distance
+// held to the plain twin's rounding.
+//
+// Design. One block owns an (x, z) tile of tx x tz bins over a segment of
+// y-slabs and walks it in y. It keeps a ring of four slab buffers in shared
+// memory, each the tile plus a one-bin halo in x and z: slabs y-1, y, y+1
+// for the slab it computes, and slab y+2, whose copies (cp.async, 4 bytes a
+// slot) are in flight meanwhile. When a slab arrives, each bin's live slots
+// are compacted in place, ascending, with a count per bin, so empty slots,
+// holes left by rebins and empty bins cost nothing in the pair loop.
+// Neighbour bins outside the physical grid (x >= xs, z >= zs, y off the
+// array) count as empty, as the twin masks them; a block never relies on
+// the contents of a bin it did not copy.
+//
+// Thread mapping: one thread per live own particle of the slab (a block-wide
+// prefix sum lists them), so work follows the particles, not the slots.
+// Each thread walks the 27 neighbour bins' compacted lists in shared memory;
+// threads of one bin read the same addresses (broadcast), neighbouring bins
+// neighbouring words. Owner-computes and two-sided: each particle sums its
+// own force in the twin's order (DIRS3: dy, dx, dz ascending; neighbour
+// slots ascending), with every product and sum rounded as the twin's (no
+// FMA contraction), so no atomics touch the sums and the kernel is
+// deterministic. The bin's max |v|^2 is an atomicMax of the float bits in
+// shared memory (order-free). Dead own slots get their outputs (BIG, 0) when
+// their slab is compacted. The tile, the segment length, the block size and
+// the shared-memory bytes come from the Python plan (cuda_grid3.step3_plan),
+// which this entry point checks.
 //
 // Numerics. Constants arrive as the float32 values the plain twin rounds.
 // The repulsive coefficient's rsqrtf may differ from torch.rsqrt by an ulp,
@@ -45,15 +53,24 @@
 #include <stdint.h>
 
 #include "pair_coef.cuh"
+#include "step_tile.cuh"
 #include "wall_fold.cuh"
 
 namespace {
 
 using ppsim::Law;
 using ppsim::PairParams;
+using ppsim::TileLayout;
 using ppsim::wall_fold;
 
 constexpr float kBig = 1.0e9f;
+
+
+// Direction bits (d = (dy+1)*9 + (dx+1)*3 + dz+1) with dx = -1, dy = -1,
+// dz = -1; shifted by 6, 18 and 2 they are the +1 sides.
+constexpr uint32_t kDXM = 0x1C0E07u;
+constexpr uint32_t kDYM = 0x1FFu;
+constexpr uint32_t kDZM = 0x1249249u;
 
 struct Fields {
   const float* x;
@@ -79,137 +96,343 @@ struct Geo3 {
   float bsx, bsy, bsz;
 };
 
+struct Tile3 {
+  int tx, tz, seg;  // own bins in x and z; y-slabs a block walks
+};
+
 __device__ __forceinline__ float r2_of(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
 }
 
-// Verlet + wall fold of one live-or-dead slot (grid3d_ops.move3_planes);
-// returns |v|^2 (0 for a dead slot, whose velocity is 0).
-__device__ __forceinline__ float move_slot(const Fields& in, const Outs& out,
-                                           int64_t i, float x, float y,
-                                           float z, float ax, float ay,
-                                           float az, float xo, float yo,
-                                           float zo, float dt, float L) {
-  const bool alive = x < 0.5f * kBig;
-  float vx = alive ? __fadd_rn(in.vx[i], __fmul_rn(ax, dt)) : 0.0f;
-  float vy = alive ? __fadd_rn(in.vy[i], __fmul_rn(ay, dt)) : 0.0f;
-  float vz = alive ? __fadd_rn(in.vz[i], __fmul_rn(az, dt)) : 0.0f;
-  x = __fadd_rn(x, __fmul_rn(vx, dt));
-  y = __fadd_rn(y, __fmul_rn(vy, dt));
-  z = __fadd_rn(z, __fmul_rn(vz, dt));
-  const float twoL = 2.0f * L;
-  wall_fold(x, vx, xo, L, twoL);
-  wall_fold(y, vy, yo, L, twoL);
-  wall_fold(z, vz, zo, L, twoL);
-  out.x[i] = alive ? x : kBig;
-  out.y[i] = alive ? y : kBig;
-  out.z[i] = alive ? z : kBig;
-  out.vx[i] = vx;
-  out.vy[i] = vy;
-  out.vz[i] = vz;
-  return alive ? r2_of(vx, vy, vz) : 0.0f;
-}
-
-template <int MAXC, Law LAW>
-__global__ void __launch_bounds__(128)
+template <Law LAW>
+__global__ void __launch_bounds__(ppsim::kTileThreads)
 grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
-                  PairParams pp, float dt, float L) {
+                  Tile3 t, PairParams pp, float dt, float L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int HX = t.tx + 2, HZ = t.tz + 2, HB = HX * HZ, OB = t.tx * t.tz;
+  const TileLayout lay = ppsim::tile_layout(3, g.cap, HB, OB);
+  const int cap = g.cap;
+  const int tid = threadIdx.x;
   const int64_t plane = (int64_t)g.Y * g.X * g.Z;
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= plane) return;
-  const int z = (int)(b % g.Z);
-  const int x = (int)((b / g.Z) % g.X);
-  const int y = (int)(b / ((int64_t)g.X * g.Z));
 
-  float sx[MAXC], sy[MAXC], sz[MAXC], ax[MAXC], ay[MAXC], az[MAXC];
-  int own_end = 0;  // one past the last live own slot
+  // block -> (segment, x tile, z tile), z tiles fastest
+  const int ntz = (g.Z + t.tz - 1) / t.tz, ntx = (g.X + t.tx - 1) / t.tx;
+  const int iz = blockIdx.x % ntz;
+  const int ix = (blockIdx.x / ntz) % ntx;
+  const int ya = blockIdx.x / (ntz * ntx) * t.seg;
+  const int yb = min(g.Y, ya + t.seg);
+  const int x0 = ix * t.tx, z0 = iz * t.tz;
+
+  auto buf = [&](int yy) { return smem + ((yy - ya + 1) & 3) * lay.buf; };
+  uint16_t* plist = reinterpret_cast<uint16_t*>(smem + lay.plist);
+  unsigned* spmax = reinterpret_cast<unsigned*>(smem + lay.spmax);
+  uint32_t* omask = reinterpret_cast<uint32_t*>(smem + lay.omask);
+  float* face = reinterpret_cast<float*>(smem + lay.face);
+  int* wsum = reinterpret_cast<int*>(smem + lay.wsum);
+
+  // This thread's halo bin for copies and compaction: h = tid % HB, and
+  // the copies of a bin's cap slots split over `parts` threads.
+  const int parts = blockDim.x / HB;
+  const int h = tid % HB, part = tid / HB;
+  const int hx = h / HZ, hz = h - hx * HZ;
+  const int gx = x0 - 1 + hx, gz = z0 - 1 + hz;
+  const bool interior = hx >= 1 && hx <= t.tx && hz >= 1 && hz <= t.tz;
+  const int o = (hx - 1) * t.tz + (hz - 1);  // own bin index if interior
+  const bool in_array = gx >= 0 && gx < g.X && gz >= 0 && gz < g.Z;
+  const bool phys = gx >= 0 && gx < g.xs && gz >= 0 && gz < g.zs;
+  // a bin is copied if it can be a neighbour, or is an own bin
+  const bool wanted = in_array && (phys || interior);
+
+  const float* fin[3] = {in.x, in.y, in.z};
+  auto issue = [&](int yy) {
+    if (yy < 0 || yy >= g.Y || part >= parts || !wanted) return;
+    float* c = reinterpret_cast<float*>(buf(yy));
+    const int64_t gb = ((int64_t)yy * g.X + gx) * g.Z + gz;
 #pragma unroll
-  for (int s = 0; s < MAXC; ++s) {
-    sx[s] = s < g.cap ? in.x[s * plane + b] : kBig;
-    sy[s] = s < g.cap ? in.y[s * plane + b] : kBig;
-    sz[s] = s < g.cap ? in.z[s * plane + b] : kBig;
-    ax[s] = 0.0f;
-    ay[s] = 0.0f;
-    az[s] = 0.0f;
-    if (sx[s] < 0.5f * kBig) own_end = s + 1;
-  }
+    for (int q = 0; q < 3; ++q)
+      for (int s = part; s < cap; s += parts)
+        ppsim::cp_async4(c + (q * cap + s) * HB + h, fin[q] + s * plane + gb);
+  };
+  auto compact = [&](int yy) {
+    if (tid >= HB) return;
+    unsigned char* b = buf(yy);
+    const bool loaded = yy >= 0 && yy < g.Y && wanted;
+    int k = 0;
+    uint32_t dead = 0;
+    if (loaded)
+      k = ppsim::compact_bin<3>(reinterpret_cast<float*>(b),
+                                reinterpret_cast<float*>(b + lay.bnd), cap,
+                                HB, h, interior ? b + lay.slot : nullptr, OB,
+                                o, &dead);
+    b[lay.ncnt + h] = (uint8_t)(loaded && phys ? k : 0);
+    if (interior) b[lay.ocnt + o] = (uint8_t)k;
+    if (interior && loaded && yy >= ya && yy < yb) {
+      const int64_t gb = ((int64_t)yy * g.X + gx) * g.Z + gz;
+      for (int s = 0; s < cap; ++s) {
+        if (dead >> s & 1u) {
+          const int64_t i = s * plane + gb;
+          out.x[i] = kBig;
+          out.y[i] = kBig;
+          out.z[i] = kBig;
+          out.vx[i] = 0.0f;
+          out.vy[i] = 0.0f;
+          out.vz[i] = 0.0f;
+        }
+      }
+    }
+  };
 
-  if (own_end > 0) {
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int yn = y + dy;
-      if (yn < 0 || yn >= g.Y) continue;
-      const float offy = (float)dy * g.bsy;  // exactly -bsy, 0 or bsy
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int xn = x + dx;
-        if (xn < 0 || xn >= g.xs) continue;
+  issue(ya - 1);
+  issue(ya);
+  issue(ya + 1);
+  ppsim::cp_async_commit();
+  ppsim::cp_async_wait_all();
+  __syncthreads();
+  compact(ya - 1);
+  compact(ya);
+  compact(ya + 1);
+  __syncthreads();
+
+  const float twoL = 2.0f * L;
+  const float cutm = pp.cutoff * 1.000001f;
+  for (int y = ya; y < yb; ++y) {
+    // slab y+2 streams in while slab y computes
+    if (y + 1 < yb) issue(y + 2);
+    ppsim::cp_async_commit();
+
+    // the live own particles of slab y, one list entry each
+    const unsigned char* cur = buf(y);
+    const int v = tid < OB ? cur[lay.ocnt + tid] : 0;
+    int total;
+    const int first = ppsim::block_exclusive_scan(v, wsum, &total);
+    for (int k = 0; k < v; ++k) plist[first + k] = (uint16_t)(tid << 5 | k);
+    if (tid < OB) {
+      spmax[tid] = 0u;
+      // The bin's non-empty neighbours (bit d, DIRS3 order) and, per face,
+      // the nearest live coordinate beyond it: the largest x of the dx=-1
+      // bins, the smallest x of the dx=+1 bins, and so on.
+      const int ox = tid / t.tz, h0 = (ox + 1) * HZ + tid - ox * t.tz + 1;
+      uint32_t m = 0;
+      float f[6] = {-kBig, kBig, -kBig, kBig, -kBig, kBig};
+#pragma unroll
+      for (int d = 0; d < 27; ++d) {
+        const int dy = d / 9 - 1, dx = d / 3 % 3 - 1, dz = d % 3 - 1;
+        const unsigned char* nb = buf(y + dy);
+        const int hn = h0 + dx * HZ + dz;
+        if (nb[lay.ncnt + hn] == 0) continue;
+        m |= 1u << d;
+        const float* bn = reinterpret_cast<const float*>(nb + lay.bnd);
+        if (dx) f[dx < 0 ? 0 : 1] = dx < 0 ? fmaxf(f[0], bn[1 * HB + hn])
+                                           : fminf(f[1], bn[0 * HB + hn]);
+        if (dy) f[dy < 0 ? 2 : 3] = dy < 0 ? fmaxf(f[2], bn[3 * HB + hn])
+                                           : fminf(f[3], bn[2 * HB + hn]);
+        if (dz) f[dz < 0 ? 4 : 5] = dz < 0 ? fmaxf(f[4], bn[5 * HB + hn])
+                                           : fminf(f[5], bn[4 * HB + hn]);
+      }
+      omask[tid] = m;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) face[q * OB + tid] = f[q];
+    }
+    __syncthreads();
+    const float* c0 = reinterpret_cast<const float*>(cur);
+
+    const float yo = __fmul_rn((float)y, g.bsy);
+#ifdef PPSIM_STEP_PER_BIN
+    // A/B variant: one thread per own bin, its compacted slots in registers
+    // (capacity <= 16), the same cut with the bin's own bounds.
+    constexpr int M = 16;
+    if (tid < OB) {
+      const int ob = tid, own = cur[lay.ocnt + ob];
+      const int ox = ob / t.tz, oz = ob - ox * t.tz;
+      const int h0 = (ox + 1) * HZ + oz + 1;
+      float sx[M], sy[M], sz[M], ax[M], ay[M], az[M];
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        sx[k] = k < own ? c0[k * HB + h0] : kBig;
+        sy[k] = k < own ? c0[(cap + k) * HB + h0] : kBig;
+        sz[k] = k < own ? c0[(2 * cap + k) * HB + h0] : kBig;
+        ax[k] = 0.0f;
+        ay[k] = 0.0f;
+        az[k] = 0.0f;
+      }
+      const float* bo = reinterpret_cast<const float*>(cur + lay.bnd) + h0;
+      uint32_t m = omask[ob];
+      const float* fc = face + ob;
+      if (__fsub_rn(__fadd_rn(fc[0], -g.bsx), bo[0]) < -cutm) m &= ~kDXM;
+      if (__fsub_rn(__fadd_rn(fc[OB], g.bsx), bo[HB]) > cutm)
+        m &= ~(kDXM << 6);
+      if (__fsub_rn(__fadd_rn(fc[2 * OB], -g.bsy), bo[2 * HB]) < -cutm)
+        m &= ~kDYM;
+      if (__fsub_rn(__fadd_rn(fc[3 * OB], g.bsy), bo[3 * HB]) > cutm)
+        m &= ~(kDYM << 18);
+      if (__fsub_rn(__fadd_rn(fc[4 * OB], -g.bsz), bo[4 * HB]) < -cutm)
+        m &= ~kDZM;
+      if (__fsub_rn(__fadd_rn(fc[5 * OB], g.bsz), bo[5 * HB]) > cutm)
+        m &= ~(kDZM << 2);
+      while (m) {
+        const int d = __ffs(m) - 1;
+        m &= m - 1;
+        const int dy = d / 9 - 1, dx = d / 3 % 3 - 1, dz = d % 3 - 1;
+        const unsigned char* nb = buf(y + dy);
+        const float offy = (float)dy * g.bsy;
         const float offx = (float)dx * g.bsx;
-        for (int dz = -1; dz <= 1; ++dz) {
-          const int zn = z + dz;
-          if (zn < 0 || zn >= g.zs) continue;
-          const float offz = (float)dz * g.bsz;
-          const int64_t nb = ((int64_t)yn * g.X + xn) * g.Z + zn;
-          for (int j = 0; j < g.cap; ++j) {
-            const float xv = in.x[j * plane + nb];
-            if (!(xv < 0.5f * kBig)) continue;  // dead slot: exact zero
-            const float xno = __fadd_rn(xv, offx);
-            const float yno = __fadd_rn(in.y[j * plane + nb], offy);
-            const float zno = __fadd_rn(in.z[j * plane + nb], offz);
+        const float offz = (float)dz * g.bsz;
+        const int hn = h0 + dx * HZ + dz;
+        const int n = nb[lay.ncnt + hn];
+        const float* px = reinterpret_cast<const float*>(nb) + hn;
+        const float* py = px + cap * HB;
+        const float* pz = py + cap * HB;
+        for (int j = 0; j < n; ++j) {
+          const float xno = __fadd_rn(px[j * HB], offx);
+          const float yno = __fadd_rn(py[j * HB], offy);
+          const float zno = __fadd_rn(pz[j * HB], offz);
 #pragma unroll
-            for (int s = 0; s < MAXC; ++s) {
-              if (s < own_end) {
-                const float ddx = __fsub_rn(xno, sx[s]);
-                const float ddy = __fsub_rn(yno, sy[s]);
-                const float ddz = __fsub_rn(zno, sz[s]);
-                const float r2 = r2_of(ddx, ddy, ddz);
-                if (r2 <= pp.c2) {
-                  const float coef = ppsim::pair_coef<LAW>(r2, pp);
-                  ax[s] = __fadd_rn(ax[s], __fmul_rn(coef, ddx));
-                  ay[s] = __fadd_rn(ay[s], __fmul_rn(coef, ddy));
-                  az[s] = __fadd_rn(az[s], __fmul_rn(coef, ddz));
-                }
+          for (int k = 0; k < M; ++k) {
+            if (k < own) {
+              const float ddx = __fsub_rn(xno, sx[k]);
+              const float ddy = __fsub_rn(yno, sy[k]);
+              const float ddz = __fsub_rn(zno, sz[k]);
+              const float r2 = r2_of(ddx, ddy, ddz);
+              if (r2 <= pp.c2) {
+                const float coef = ppsim::pair_coef<LAW>(r2, pp);
+                ax[k] = __fadd_rn(ax[k], __fmul_rn(coef, ddx));
+                ay[k] = __fadd_rn(ay[k], __fmul_rn(coef, ddy));
+                az[k] = __fadd_rn(az[k], __fmul_rn(coef, ddz));
               }
             }
           }
         }
       }
-    }
-  }
-
-  const float xo = __fmul_rn((float)x, g.bsx);
-  const float yo = __fmul_rn((float)y, g.bsy);
-  const float zo = __fmul_rn((float)z, g.bsz);
-  float spmax = 0.0f;
+      float spm = 0.0f;
 #pragma unroll
-  for (int s = 0; s < MAXC; ++s) {
-    if (s < g.cap) {
-      spmax = fmaxf(spmax, move_slot(in, out, s * plane + b, sx[s], sy[s],
-                                     sz[s], ax[s], ay[s], az[s], xo, yo, zo,
-                                     dt, L));
+      for (int k = 0; k < M; ++k) {
+        if (k < own) {
+          const int64_t i = cur[lay.slot + k * OB + ob] * plane +
+                            ((int64_t)y * g.X + x0 + ox) * g.Z + z0 + oz;
+          float vx = __fadd_rn(in.vx[i], __fmul_rn(ax[k], dt));
+          float vy = __fadd_rn(in.vy[i], __fmul_rn(ay[k], dt));
+          float vz = __fadd_rn(in.vz[i], __fmul_rn(az[k], dt));
+          float x = __fadd_rn(sx[k], __fmul_rn(vx, dt));
+          float yv = __fadd_rn(sy[k], __fmul_rn(vy, dt));
+          float z = __fadd_rn(sz[k], __fmul_rn(vz, dt));
+          wall_fold(x, vx, __fmul_rn((float)(x0 + ox), g.bsx), L, twoL);
+          wall_fold(yv, vy, yo, L, twoL);
+          wall_fold(z, vz, __fmul_rn((float)(z0 + oz), g.bsz), L, twoL);
+          out.x[i] = x;
+          out.y[i] = yv;
+          out.z[i] = z;
+          out.vx[i] = vx;
+          out.vy[i] = vy;
+          out.vz[i] = vz;
+          spm = fmaxf(spm, r2_of(vx, vy, vz));
+        }
+      }
+      spmax[ob] = __float_as_uint(spm);
     }
+#else
+    for (int p = tid; p < total; p += blockDim.x) {
+      const int e = plist[p];
+      const int ob = e >> 5, k = e & 31;
+      const int ox = ob / t.tz, oz = ob - ox * t.tz;
+      const int h0 = (ox + 1) * HZ + oz + 1;
+      const float sx = c0[k * HB + h0];
+      const float sy = c0[(cap + k) * HB + h0];
+      const float sz = c0[(2 * cap + k) * HB + h0];
+      const int s = cur[lay.slot + k * OB + ob];
+      const int64_t i =
+          s * plane + ((int64_t)y * g.X + x0 + ox) * g.Z + z0 + oz;
+      float ax = 0.0f, ay = 0.0f, az = 0.0f;
+      // Cut the neighbour bins beyond a face whose nearest live coordinate
+      // lies more than a cutoff away: the gap is computed with the pair
+      // loop's own rounded ops (neighbour + offset, minus own), rounding is
+      // monotone, so every pair there would fail r2 <= c2 (cutm carries a
+      // 1e-6 margin over the cutoff). Cut pairs would add exact zeros.
+      uint32_t m = omask[ob];
+      const float* fc = face + ob;
+      if (__fsub_rn(__fadd_rn(fc[0], -g.bsx), sx) < -cutm) m &= ~kDXM;
+      if (__fsub_rn(__fadd_rn(fc[OB], g.bsx), sx) > cutm) m &= ~(kDXM << 6);
+      if (__fsub_rn(__fadd_rn(fc[2 * OB], -g.bsy), sy) < -cutm) m &= ~kDYM;
+      if (__fsub_rn(__fadd_rn(fc[3 * OB], g.bsy), sy) > cutm)
+        m &= ~(kDYM << 18);
+      if (__fsub_rn(__fadd_rn(fc[4 * OB], -g.bsz), sz) < -cutm) m &= ~kDZM;
+      if (__fsub_rn(__fadd_rn(fc[5 * OB], g.bsz), sz) > cutm)
+        m &= ~(kDZM << 2);
+      // the remaining bins in DIRS3 order (dy, dx, dz ascending)
+      while (m) {
+        const int d = __ffs(m) - 1;
+        m &= m - 1;
+        const int dy = d / 9 - 1, dx = d / 3 % 3 - 1, dz = d % 3 - 1;
+        const unsigned char* nb = buf(y + dy);
+        const float offy = (float)dy * g.bsy;  // exactly -bsy, 0 or bsy
+        const float offx = (float)dx * g.bsx;
+        const float offz = (float)dz * g.bsz;
+        const int hn = h0 + dx * HZ + dz;
+        const int n = nb[lay.ncnt + hn];
+        const float* px = reinterpret_cast<const float*>(nb) + hn;
+        const float* py = px + cap * HB;
+        const float* pz = py + cap * HB;
+        for (int j = 0; j < n; ++j) {
+          const float xno = __fadd_rn(px[j * HB], offx);
+          const float yno = __fadd_rn(py[j * HB], offy);
+          const float zno = __fadd_rn(pz[j * HB], offz);
+          const float ddx = __fsub_rn(xno, sx);
+          const float ddy = __fsub_rn(yno, sy);
+          const float ddz = __fsub_rn(zno, sz);
+          const float r2 = r2_of(ddx, ddy, ddz);
+          if (r2 <= pp.c2) {
+            const float coef = ppsim::pair_coef<LAW>(r2, pp);
+            ax = __fadd_rn(ax, __fmul_rn(coef, ddx));
+            ay = __fadd_rn(ay, __fmul_rn(coef, ddy));
+            az = __fadd_rn(az, __fmul_rn(coef, ddz));
+          }
+        }
+      }
+      // Verlet + wall fold (grid3d_ops.move3_planes) of a live slot
+      float vx = __fadd_rn(in.vx[i], __fmul_rn(ax, dt));
+      float vy = __fadd_rn(in.vy[i], __fmul_rn(ay, dt));
+      float vz = __fadd_rn(in.vz[i], __fmul_rn(az, dt));
+      float x = __fadd_rn(sx, __fmul_rn(vx, dt));
+      float yv = __fadd_rn(sy, __fmul_rn(vy, dt));
+      float z = __fadd_rn(sz, __fmul_rn(vz, dt));
+      wall_fold(x, vx, __fmul_rn((float)(x0 + ox), g.bsx), L, twoL);
+      wall_fold(yv, vy, yo, L, twoL);
+      wall_fold(z, vz, __fmul_rn((float)(z0 + oz), g.bsz), L, twoL);
+      out.x[i] = x;
+      out.y[i] = yv;
+      out.z[i] = z;
+      out.vx[i] = vx;
+      out.vy[i] = vy;
+      out.vz[i] = vz;
+      atomicMax(&spmax[ob], __float_as_uint(r2_of(vx, vy, vz)));
+    }
+#endif
+    __syncthreads();
+    if (tid < OB) {
+      const int ox = tid / t.tz, oz = tid - ox * t.tz;
+      if (x0 + ox < g.X && z0 + oz < g.Z)
+        sp[((int64_t)y * g.X + x0 + ox) * g.Z + z0 + oz] =
+            __uint_as_float(spmax[tid]);
+    }
+    ppsim::cp_async_wait_all();
+    __syncthreads();
+    if (y + 1 < yb) compact(y + 2);
+    __syncthreads();
   }
-  sp[b] = spmax;
-}
-
-template <int MAXC, Law LAW>
-int launch(const Fields& in, const Outs& out, float* sp, const Geo3& g,
-           const PairParams& pp, float dt, float L, cudaStream_t s) {
-  const int64_t plane = (int64_t)g.Y * g.X * g.Z;
-  const int block = 128;
-  const int64_t grid = (plane + block - 1) / block;
-  grid3_step_kernel<MAXC, LAW><<<(unsigned)grid, block, 0, s>>>(
-      in, out, sp, g, pp, dt, L);
-  return (int)cudaGetLastError();
 }
 
 template <Law LAW>
-int launch_law(const Fields& in, const Outs& out, float* sp, const Geo3& g,
-               const PairParams& pp, float dt, float L, cudaStream_t s) {
-  if (g.cap <= 8) return launch<8, LAW>(in, out, sp, g, pp, dt, L, s);
-  if (g.cap <= 12) return launch<12, LAW>(in, out, sp, g, pp, dt, L, s);
-  if (g.cap <= 16) return launch<16, LAW>(in, out, sp, g, pp, dt, L, s);
-  if (g.cap <= 32) return launch<32, LAW>(in, out, sp, g, pp, dt, L, s);
-  return (int)cudaErrorInvalidValue;
+int launch(const Fields& in, const Outs& out, float* sp, const Geo3& g,
+           const Tile3& t, int threads, int blocks, int smem,
+           const PairParams& pp, float dt, float L, cudaStream_t s) {
+  auto kernel = grid3_step_kernel<LAW>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<blocks, threads, smem, s>>>(in, out, sp, g, t, pp, dt, L);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -217,28 +440,43 @@ int launch_law(const Fields& in, const Outs& out, float* sp, const Geo3& g,
 extern "C" {
 
 // Inputs x, y, z, vx, vy, vz; outputs likewise; sp the (Y, X, Z) speed
-// plane. law 0 = repulsive, 1 = Lennard-Jones. Returns cudaGetLastError()
-// after the launch (0 = launched). cap <= 32.
+// plane. law 0 = repulsive, 1 = Lennard-Jones. The launch plan (tile tx x
+// tz, segment length, threads, blocks, shared bytes) must be the one
+// cuda_grid3.step3_plan gives for this shape; anything else returns
+// cudaErrorInvalidValue. Returns cudaGetLastError() after the launch
+// (0 = launched). cap <= 32.
 int ppsim_grid3_step(const float* x, const float* y, const float* z,
                      const float* vx, const float* vy, const float* vz,
                      float* xo, float* yo, float* zo, float* vxo, float* vyo,
                      float* vzo, float* sp, int device, int cap,
-                     int Y, int X, int Z, int xs, int zs, int law, float bsx,
-                     float bsy, float bsz, float c2, float cutoff, float mr2,
-                     float inv_mass, float sig2, float lj_k, float mass,
-                     float dt, float L, void* stream) {
-  if (cap < 1) return (int)cudaErrorInvalidValue;
+                     int Y, int X, int Z, int xs, int zs, int law, int tx,
+                     int tz, int seg, int threads, int blocks, int smem,
+                     float bsx, float bsy, float bsz, float c2, float cutoff,
+                     float mr2, float inv_mass, float sig2, float lj_k,
+                     float mass, float dt, float L, void* stream) {
+  if (cap < 1 || cap > 32 || tx < 1 || tz < 1 || seg < 1)
+    return (int)cudaErrorInvalidValue;
+  const int hb = (tx + 2) * (tz + 2), ob = tx * tz;
+  const int nblocks = ((X + tx - 1) / tx) * ((Z + tz - 1) / tz) *
+                      ((Y + seg - 1) / seg);
+  if (threads % 32 || threads > ppsim::kTileThreads || hb > threads ||
+      ob > 2048 || blocks != nblocks ||
+      smem != ppsim::tile_layout(3, cap, hb, ob).bytes)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const Fields in{x, y, z, vx, vy, vz};
   const Outs out{xo, yo, zo, vxo, vyo, vzo};
   const Geo3 g{cap, Y, X, Z, xs, zs, bsx, bsy, bsz};
+  const Tile3 t{tx, tz, seg};
   const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
   if (law == (int)Law::kRepulsive)
-    return launch_law<Law::kRepulsive>(in, out, sp, g, pp, dt, L, s);
+    return launch<Law::kRepulsive>(in, out, sp, g, t, threads, blocks, smem,
+                                   pp, dt, L, s);
   if (law == (int)Law::kLJ)
-    return launch_law<Law::kLJ>(in, out, sp, g, pp, dt, L, s);
+    return launch<Law::kLJ>(in, out, sp, g, t, threads, blocks, smem, pp, dt,
+                            L, s);
   return (int)cudaErrorInvalidValue;
 }
 

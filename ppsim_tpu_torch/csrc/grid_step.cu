@@ -9,29 +9,45 @@
 // (through grid_force_pallas). Plain twins: ppsim_tpu_torch/ops/cuda_grid.py
 // grid_step_plain (grid_force_xla + the move planes) and grid_force_plain.
 //
-// Design. One thread per bin (r, c), c fastest, so each slot-plane load of a
-// warp is 32 consecutive floats. Owner-computes and two-sided: the thread
-// sums, for each of its own slots, the force from all 9 neighbour bins x cap
-// slots, then integrates its own slots. The TPU kernel evaluates each pair
-// once (Newton 3) and scatters the reaction through a row spill that the next
-// grid block reads; that relies on the TPU running grid blocks in order, and
-// CUDA blocks run concurrently in no order. Owner-computes does about twice
-// the pair math (9*cap^2 vs cap(cap-1)/2 + 4*cap^2 pair evaluations per bin)
-// but needs no atomics and no ordering, is deterministic, and sums in the
-// same order as the plain twin (directions in DIRS order, neighbour slots
-// ascending). Bins outside [0,R)x[0,C) read as BIG (the block_ext fill and the
-// lane masks of the TPU kernel); dead neighbour slots hold exactly BIG and
-// contribute exact zeros, so both are skipped.
+// Layout. Fields are (cap, R, C) float32 planes, c fastest; bin b = r*C + c,
+// slot s at s*plane + b. Dead slots hold exactly BIG.
 //
-// Bound. Pair math: ~9*cap^2 candidate pairs per bin (1764 at cap 14), of
-// which the in-cutoff ones (a few per slot) reach the rsqrt. Memory traffic
-// is small (each slot plane read by 9 threads, mostly from L1/L2). So the
-// kernel is bound by issue of the candidate-pair loop; skipping dead
-// neighbour slots (about half at the main path's occupancy 7.6 of 14) is the
-// one saving taken here. Newton-3 halving and per-bin occupancy bounds are
-// later work. K6 does the same pair loop and writes 2 planes instead of 4 +
-// the speed plane, so it is bound the same way. Both call one device
-// function for the pair loop (accum_pairs), so they cannot drift apart.
+// Bound. Memory: K1 reads 4 planes and writes 4 + the speed plane (~0.37 ms
+// at 1664^2 x 14 on 3.35 TB/s); K6 reads 2 and writes 2. Operations: each
+// live particle tests every live slot of its 9 neighbour bins (~1.4G ordered
+// candidate pairs per step on the main path), of which about 1% lie inside
+// the cutoff (bins are ~6 cutoffs wide). So the issue rate of the distance
+// tests, and what they cost in addressing and divergence, bounds both
+// kernels, not the force law and not the bytes. Tensor cores have no part:
+// each test is an elementwise float32 distance held to the plain twin's
+// rounding.
+//
+// Design. One block owns a strip of W columns over a segment of rows and
+// walks it row by row. It keeps a ring of four row buffers in shared memory,
+// each the strip plus one halo column on each side: rows r-1, r, r+1 for the
+// row it computes, and row r+2, whose copies (cp.async, 4 bytes a slot) are
+// in flight meanwhile. When a row arrives, each bin's live slots are
+// compacted in place, ascending, with a count per bin, so empty slots, holes
+// left by rebins and empty bins cost nothing in the pair loop. Bins outside
+// [0,R)x[0,C) count as empty (the block_ext fill and the lane masks of the
+// TPU kernel); a block never relies on the contents of a bin it did not
+// copy.
+//
+// Thread mapping: one thread per live own particle of the row (a block-wide
+// prefix sum lists them). Each thread walks the 9 neighbour bins' compacted
+// lists in shared memory; threads of one bin read the same addresses
+// (broadcast), neighbouring bins neighbouring words. Owner-computes and
+// two-sided: the TPU kernel evaluates each pair once (Newton 3) and scatters
+// the reaction through a row spill that the next grid block reads, which
+// relies on the TPU running grid blocks in order; CUDA blocks run in no
+// order. Each particle sums its own force in the twin's order (directions
+// in DIRS order, dr outer; neighbour slots ascending), so no atomics touch
+// the sums and the kernel is deterministic. The bin's max |v|^2 is an
+// atomicMax of the float bits in shared memory (order-free). Dead own slots
+// get their outputs (K1: BIG and 0; K6: 0) when their row is compacted. K1
+// and K6 are one template (MOVE), so their pair loops cannot drift apart.
+// The strip width, segment length, block size and shared-memory bytes come
+// from the Python plan (cuda_grid.step_plan), which the entry points check.
 //
 // Force law. The pair coefficient comes from pair_coef.cuh, a template
 // parameter: the repulsive law (the default) or truncated Lennard-Jones.
@@ -51,173 +67,364 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "pair_coef.cuh"
+#include "step_tile.cuh"
 #include "wall_fold.cuh"
 
 namespace {
 
 using ppsim::Law;
 using ppsim::PairParams;
+using ppsim::TileLayout;
 using ppsim::wall_fold;
 
 constexpr float kBig = 1.0e9f;
 
-// Sum into (ax, ay) the force on the bin's own slots (sx, sy) from all 9
-// neighbour bins x cap slots, directions in grid_ops.DIRS order (dr outer, dc
-// inner), neighbour slots ascending.
-template <int MAXC, Law LAW>
-__device__ __forceinline__ void accum_pairs(
-    const float* __restrict__ xl, const float* __restrict__ yl,
-    const float (&sx)[MAXC], const float (&sy)[MAXC], float (&ax)[MAXC],
-    float (&ay)[MAXC], int r, int c, int cap, int R, int C, int64_t plane,
-    float bs, const PairParams& pp) {
-  for (int dr = -1; dr <= 1; ++dr) {
-    const int rn = r + dr;
-    if (rn < 0 || rn >= R) continue;
-    const float offx = dr * bs;  // exactly -bs, 0 or bs
-    for (int dc = -1; dc <= 1; ++dc) {
-      const int cn = c + dc;
-      if (cn < 0 || cn >= C) continue;
-      const float offy = dc * bs;
-      const int64_t nb = (int64_t)rn * C + cn;
-      for (int j = 0; j < cap; ++j) {
-        const float xn = xl[j * plane + nb];
-        if (!(xn < 0.5f * kBig)) continue;  // dead slot: exact zero force
-        const float xno = __fadd_rn(xn, offx);
-        const float yno = __fadd_rn(yl[j * plane + nb], offy);
-#pragma unroll
-        for (int s = 0; s < MAXC; ++s) {
-          if (s < cap) {
-            const float dx = __fsub_rn(xno, sx[s]);
-            const float dy = __fsub_rn(yno, sy[s]);
-            // Truncated LJ jumps at the cutoff, so its in-cutoff test takes
-            // r2 rounded as the twin rounds it (no FMA); the repulsive
-            // coefficient is 0 at the cutoff and keeps the contracted form.
-            float r2;
-            if constexpr (LAW == Law::kLJ)
-              r2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-            else
-              r2 = dx * dx + dy * dy;
-            if (r2 <= pp.c2) {
-              const float coef = ppsim::pair_coef<LAW>(r2, pp);
-              ax[s] += coef * dx;
-              ay[s] += coef * dy;
-            }
+
+// Direction bits (d = (dr+1)*3 + dc+1) with dr = -1 and with dc = -1;
+// shifted by 6 and 2 they are the +1 sides.
+constexpr uint32_t kDRM = 0x7u;
+constexpr uint32_t kDCM = 0x49u;
+
+struct Geo2 {
+  int cap, R, C;
+  float bs;
+};
+
+struct Tile2 {
+  int w, seg;  // own columns of a strip; rows a block walks
+};
+
+// MOVE: K1 (outputs x, y, vx, vy and the speed plane); else K6 (outputs
+// ax, ay in o0, o1).
+template <Law LAW, bool MOVE>
+__global__ void __launch_bounds__(ppsim::kTileThreads)
+grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
+                 const float* __restrict__ vx, const float* __restrict__ vy,
+                 float* __restrict__ o0, float* __restrict__ o1,
+                 float* __restrict__ o2, float* __restrict__ o3,
+                 float* __restrict__ sp, Geo2 g, Tile2 t, PairParams pp,
+                 float dt, float L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int HB = t.w + 2, OB = t.w;
+  const TileLayout lay = ppsim::tile_layout(2, g.cap, HB, OB);
+  const int cap = g.cap;
+  const int tid = threadIdx.x;
+  const int64_t plane = (int64_t)g.R * g.C;
+
+  // block -> (segment, strip), strips fastest
+  const int nstrip = (g.C + t.w - 1) / t.w;
+  const int c0 = (blockIdx.x % nstrip) * t.w;
+  const int ra = blockIdx.x / nstrip * t.seg;
+  const int rb = min(g.R, ra + t.seg);
+
+  auto buf = [&](int rr) { return smem + ((rr - ra + 1) & 3) * lay.buf; };
+  uint16_t* plist = reinterpret_cast<uint16_t*>(smem + lay.plist);
+  unsigned* spmax = reinterpret_cast<unsigned*>(smem + lay.spmax);
+  uint32_t* omask = reinterpret_cast<uint32_t*>(smem + lay.omask);
+  float* face = reinterpret_cast<float*>(smem + lay.face);
+  int* wsum = reinterpret_cast<int*>(smem + lay.wsum);
+
+  // This thread's halo bin for copies and compaction: h = tid % HB, and
+  // the copies of a bin's cap slots split over `parts` threads.
+  const int parts = blockDim.x / HB;
+  const int h = tid % HB, part = tid / HB;
+  const int gc = c0 - 1 + h;
+  const bool interior = h >= 1 && h <= t.w;
+  const bool in_array = gc >= 0 && gc < g.C;
+
+  auto issue = [&](int rr) {
+    if (rr < 0 || rr >= g.R || part >= parts || !in_array) return;
+    float* c = reinterpret_cast<float*>(buf(rr));
+    const int64_t gb = (int64_t)rr * g.C + gc;
+    for (int s = part; s < cap; s += parts) {
+      ppsim::cp_async4(c + s * HB + h, xl + s * plane + gb);
+      ppsim::cp_async4(c + (cap + s) * HB + h, yl + s * plane + gb);
+    }
+  };
+  auto compact = [&](int rr) {
+    if (tid >= HB) return;
+    unsigned char* b = buf(rr);
+    const bool loaded = rr >= 0 && rr < g.R && in_array;
+    int k = 0;
+    uint32_t dead = 0;
+    if (loaded)
+      k = ppsim::compact_bin<2>(reinterpret_cast<float*>(b),
+                                reinterpret_cast<float*>(b + lay.bnd), cap,
+                                HB, h, interior ? b + lay.slot : nullptr, OB,
+                                h - 1, &dead);
+    b[lay.ncnt + h] = (uint8_t)k;
+    if (interior && loaded && rr >= ra && rr < rb) {
+      const int64_t gb = (int64_t)rr * g.C + gc;
+      for (int s = 0; s < cap; ++s) {
+        if (dead >> s & 1u) {
+          const int64_t i = s * plane + gb;
+          if constexpr (MOVE) {
+            o0[i] = kBig;
+            o1[i] = kBig;
+            o2[i] = 0.0f;
+            o3[i] = 0.0f;
+          } else {
+            o0[i] = 0.0f;
+            o1[i] = 0.0f;
           }
         }
       }
     }
-  }
-}
+  };
 
-// The bin's own slots into registers (BIG past cap) and zeroed sums.
-template <int MAXC>
-__device__ __forceinline__ void load_own(const float* __restrict__ xl,
-                                         const float* __restrict__ yl,
-                                         float (&sx)[MAXC], float (&sy)[MAXC],
-                                         float (&ax)[MAXC], float (&ay)[MAXC],
-                                         int cap, int64_t plane, int64_t b) {
-#pragma unroll
-  for (int s = 0; s < MAXC; ++s) {
-    sx[s] = s < cap ? xl[s * plane + b] : kBig;
-    sy[s] = s < cap ? yl[s * plane + b] : kBig;
-    ax[s] = 0.0f;
-    ay[s] = 0.0f;
-  }
-}
+  issue(ra - 1);
+  issue(ra);
+  issue(ra + 1);
+  ppsim::cp_async_commit();
+  ppsim::cp_async_wait_all();
+  __syncthreads();
+  compact(ra - 1);
+  compact(ra);
+  compact(ra + 1);
+  __syncthreads();
 
-template <int MAXC, Law LAW>
-__global__ void __launch_bounds__(128)
-grid_step_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
-                 const float* __restrict__ vx, const float* __restrict__ vy,
-                 float* __restrict__ xo, float* __restrict__ yo,
-                 float* __restrict__ vxo, float* __restrict__ vyo,
-                 float* __restrict__ sp, int cap, int R, int C, float bs,
-                 PairParams pp, float dt, float L) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= C) return;
-  const int64_t plane = (int64_t)R * C;
-  const int64_t b = (int64_t)r * C + c;
-
-  float sx[MAXC], sy[MAXC], ax[MAXC], ay[MAXC];
-  load_own<MAXC>(xl, yl, sx, sy, ax, ay, cap, plane, b);
-  accum_pairs<MAXC, LAW>(xl, yl, sx, sy, ax, ay, r, c, cap, R, C, plane, bs,
-                         pp);
-
-  // Move tail (pallas_grid._move_tail): Verlet, wall fold, speed plane.
-  const float row_off = __fmul_rn((float)r, bs);
-  const float col_off = __fmul_rn((float)c, bs);
   const float twoL = 2.0f * L;
-  float spmax = 0.0f;
+  const float cutm = pp.cutoff * 1.000001f;
+  for (int r = ra; r < rb; ++r) {
+    // row r+2 streams in while row r computes
+    if (r + 1 < rb) issue(r + 2);
+    ppsim::cp_async_commit();
+
+    // the live own particles of row r, one list entry each (own bin o sits
+    // at halo bin o + 1)
+    const unsigned char* cur = buf(r);
+    const int v = tid < OB ? cur[lay.ncnt + tid + 1] : 0;
+    int total;
+    const int first = ppsim::block_exclusive_scan(v, wsum, &total);
+    for (int k = 0; k < v; ++k) plist[first + k] = (uint16_t)(tid << 5 | k);
+    if (tid < OB) {
+      if (MOVE) spmax[tid] = 0u;
+      // The bin's non-empty neighbours (bit d, DIRS order) and, per face,
+      // the nearest live coordinate beyond it: the largest x of the dr=-1
+      // bins, the smallest x of the dr=+1 bins, and so on.
+      uint32_t m = 0;
+      float f[4] = {-kBig, kBig, -kBig, kBig};
 #pragma unroll
-  for (int s = 0; s < MAXC; ++s) {
-    if (s < cap) {
-      const int64_t i = s * plane + b;
-      const bool alive = sx[s] < 0.5f * kBig;
-      float vxs = alive ? __fadd_rn(vx[i], __fmul_rn(ax[s], dt)) : 0.0f;
-      float vys = alive ? __fadd_rn(vy[i], __fmul_rn(ay[s], dt)) : 0.0f;
-      float x = __fadd_rn(sx[s], __fmul_rn(vxs, dt));
-      float y = __fadd_rn(sy[s], __fmul_rn(vys, dt));
-      wall_fold(x, vxs, row_off, L, twoL);
-      wall_fold(y, vys, col_off, L, twoL);
-      xo[i] = alive ? x : kBig;
-      yo[i] = alive ? y : kBig;
-      vxo[i] = vxs;
-      vyo[i] = vys;
-      // dead slots hold v = 0, matching the plain twin's alive-masked speed2
-      spmax = fmaxf(spmax, __fadd_rn(__fmul_rn(vxs, vxs), __fmul_rn(vys, vys)));
+      for (int d = 0; d < 9; ++d) {
+        const int dr = d / 3 - 1, dc = d % 3 - 1;
+        const unsigned char* nb = buf(r + dr);
+        const int hn = tid + 1 + dc;
+        if (nb[lay.ncnt + hn] == 0) continue;
+        m |= 1u << d;
+        const float* bn = reinterpret_cast<const float*>(nb + lay.bnd);
+        if (dr) f[dr < 0 ? 0 : 1] = dr < 0 ? fmaxf(f[0], bn[1 * HB + hn])
+                                           : fminf(f[1], bn[0 * HB + hn]);
+        if (dc) f[dc < 0 ? 2 : 3] = dc < 0 ? fmaxf(f[2], bn[3 * HB + hn])
+                                           : fminf(f[3], bn[2 * HB + hn]);
+      }
+      omask[tid] = m;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) face[q * OB + tid] = f[q];
     }
+    __syncthreads();
+    const float* cc = reinterpret_cast<const float*>(cur);
+
+    const float row_off = __fmul_rn((float)r, g.bs);
+#ifdef PPSIM_STEP_PER_BIN
+    // A/B variant: one thread per own bin, its compacted slots in registers
+    // (capacity <= 16), the same cut with the bin's own bounds.
+    constexpr int M = 16;
+    if (tid < OB) {
+      const int ob = tid, own = cur[lay.ncnt + ob + 1];
+      float sx[M], sy[M], ax[M], ay[M];
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        sx[k] = k < own ? cc[k * HB + ob + 1] : kBig;
+        sy[k] = k < own ? cc[(cap + k) * HB + ob + 1] : kBig;
+        ax[k] = 0.0f;
+        ay[k] = 0.0f;
+      }
+      const float* bo = reinterpret_cast<const float*>(cur + lay.bnd) + ob + 1;
+      uint32_t m = omask[ob];
+      const float* fc = face + ob;
+      if (__fsub_rn(__fadd_rn(fc[0], -g.bs), bo[0]) < -cutm) m &= ~kDRM;
+      if (__fsub_rn(__fadd_rn(fc[OB], g.bs), bo[HB]) > cutm) m &= ~(kDRM << 6);
+      if (__fsub_rn(__fadd_rn(fc[2 * OB], -g.bs), bo[2 * HB]) < -cutm)
+        m &= ~kDCM;
+      if (__fsub_rn(__fadd_rn(fc[3 * OB], g.bs), bo[3 * HB]) > cutm)
+        m &= ~(kDCM << 2);
+      while (m) {
+        const int d = __ffs(m) - 1;
+        m &= m - 1;
+        const int dr = d / 3 - 1, dc = d % 3 - 1;
+        const unsigned char* nb = buf(r + dr);
+        const float offx = dr * g.bs;
+        const float offy = dc * g.bs;
+        const int hn = ob + 1 + dc;
+        const int n = nb[lay.ncnt + hn];
+        const float* px = reinterpret_cast<const float*>(nb) + hn;
+        const float* py = px + cap * HB;
+        for (int j = 0; j < n; ++j) {
+          const float xno = __fadd_rn(px[j * HB], offx);
+          const float yno = __fadd_rn(py[j * HB], offy);
+#pragma unroll
+          for (int k = 0; k < M; ++k) {
+            if (k < own) {
+              const float dx = __fsub_rn(xno, sx[k]);
+              const float dy = __fsub_rn(yno, sy[k]);
+              float r2;
+              if constexpr (LAW == Law::kLJ)
+                r2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+              else
+                r2 = dx * dx + dy * dy;
+              if (r2 <= pp.c2) {
+                const float coef = ppsim::pair_coef<LAW>(r2, pp);
+                ax[k] += coef * dx;
+                ay[k] += coef * dy;
+              }
+            }
+          }
+        }
+      }
+      float spm = 0.0f;
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        if (k < own) {
+          const int64_t i = cur[lay.slot + k * OB + ob] * plane +
+                            (int64_t)r * g.C + c0 + ob;
+          if constexpr (MOVE) {
+            float vxs = __fadd_rn(vx[i], __fmul_rn(ax[k], dt));
+            float vys = __fadd_rn(vy[i], __fmul_rn(ay[k], dt));
+            float x = __fadd_rn(sx[k], __fmul_rn(vxs, dt));
+            float y = __fadd_rn(sy[k], __fmul_rn(vys, dt));
+            wall_fold(x, vxs, row_off, L, twoL);
+            wall_fold(y, vys, __fmul_rn((float)(c0 + ob), g.bs), L, twoL);
+            o0[i] = x;
+            o1[i] = y;
+            o2[i] = vxs;
+            o3[i] = vys;
+            spm = fmaxf(spm, __fadd_rn(__fmul_rn(vxs, vxs),
+                                       __fmul_rn(vys, vys)));
+          } else {
+            o0[i] = ax[k];
+            o1[i] = ay[k];
+          }
+        }
+      }
+      if (MOVE) spmax[ob] = __float_as_uint(spm);
+    }
+#else
+    for (int p = tid; p < total; p += blockDim.x) {
+      const int e = plist[p];
+      const int ob = e >> 5, k = e & 31;
+      const float sx = cc[k * HB + ob + 1];
+      const float sy = cc[(cap + k) * HB + ob + 1];
+      const int s = cur[lay.slot + k * OB + ob];
+      const int64_t i = s * plane + (int64_t)r * g.C + c0 + ob;
+      float ax = 0.0f, ay = 0.0f;
+      // Cut the neighbour bins beyond a face whose nearest live coordinate
+      // lies more than a cutoff away: the gap is computed with the pair
+      // loop's own rounded ops (neighbour + offset, minus own), rounding is
+      // monotone, so every pair there would fail r2 <= c2 (cutm carries a
+      // 1e-6 margin over the cutoff, for the contracted r2 too). Cut pairs
+      // would add exact zeros.
+      uint32_t m = omask[ob];
+      const float* fc = face + ob;
+      if (__fsub_rn(__fadd_rn(fc[0], -g.bs), sx) < -cutm) m &= ~kDRM;
+      if (__fsub_rn(__fadd_rn(fc[OB], g.bs), sx) > cutm) m &= ~(kDRM << 6);
+      if (__fsub_rn(__fadd_rn(fc[2 * OB], -g.bs), sy) < -cutm) m &= ~kDCM;
+      if (__fsub_rn(__fadd_rn(fc[3 * OB], g.bs), sy) > cutm)
+        m &= ~(kDCM << 2);
+      // the remaining bins in DIRS order (dr outer, dc inner)
+      while (m) {
+        const int d = __ffs(m) - 1;
+        m &= m - 1;
+        const int dr = d / 3 - 1, dc = d % 3 - 1;
+        const unsigned char* nb = buf(r + dr);
+        const float offx = dr * g.bs;  // exactly -bs, 0 or bs
+        const float offy = dc * g.bs;
+        const int hn = ob + 1 + dc;
+        const int n = nb[lay.ncnt + hn];
+        const float* px = reinterpret_cast<const float*>(nb) + hn;
+        const float* py = px + cap * HB;
+        for (int j = 0; j < n; ++j) {
+          const float xno = __fadd_rn(px[j * HB], offx);
+          const float yno = __fadd_rn(py[j * HB], offy);
+          const float dx = __fsub_rn(xno, sx);
+          const float dy = __fsub_rn(yno, sy);
+          // Truncated LJ jumps at the cutoff, so its in-cutoff test takes
+          // r2 rounded as the twin rounds it (no FMA); the repulsive
+          // coefficient is 0 at the cutoff and keeps the contracted form.
+          float r2;
+          if constexpr (LAW == Law::kLJ)
+            r2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+          else
+            r2 = dx * dx + dy * dy;
+          if (r2 <= pp.c2) {
+            const float coef = ppsim::pair_coef<LAW>(r2, pp);
+            ax += coef * dx;
+            ay += coef * dy;
+          }
+        }
+      }
+      if constexpr (MOVE) {
+        // Move tail (pallas_grid._move_tail) of a live slot: Verlet, wall
+        // fold, speed plane.
+        float vxs = __fadd_rn(vx[i], __fmul_rn(ax, dt));
+        float vys = __fadd_rn(vy[i], __fmul_rn(ay, dt));
+        float x = __fadd_rn(sx, __fmul_rn(vxs, dt));
+        float y = __fadd_rn(sy, __fmul_rn(vys, dt));
+        wall_fold(x, vxs, row_off, L, twoL);
+        wall_fold(y, vys, __fmul_rn((float)(c0 + ob), g.bs), L, twoL);
+        o0[i] = x;
+        o1[i] = y;
+        o2[i] = vxs;
+        o3[i] = vys;
+        atomicMax(&spmax[ob], __float_as_uint(__fadd_rn(
+                                  __fmul_rn(vxs, vxs), __fmul_rn(vys, vys))));
+      } else {
+        o0[i] = ax;
+        o1[i] = ay;
+      }
+    }
+#endif
+    __syncthreads();
+    if (MOVE && tid < OB && c0 + tid < g.C)
+      sp[(int64_t)r * g.C + c0 + tid] = __uint_as_float(spmax[tid]);
+    ppsim::cp_async_wait_all();
+    __syncthreads();
+    if (r + 1 < rb) compact(r + 2);
+    __syncthreads();
   }
-  sp[b] = spmax;
 }
 
-// K6: the accelerations of every slot, the move left out.
-template <int MAXC, Law LAW>
-__global__ void __launch_bounds__(128)
-grid_force_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
-                  float* __restrict__ axo, float* __restrict__ ayo, int cap,
-                  int R, int C, float bs, PairParams pp) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= C) return;
-  const int64_t plane = (int64_t)R * C;
-  const int64_t b = (int64_t)r * C + c;
-
-  float sx[MAXC], sy[MAXC], ax[MAXC], ay[MAXC];
-  load_own<MAXC>(xl, yl, sx, sy, ax, ay, cap, plane, b);
-  accum_pairs<MAXC, LAW>(xl, yl, sx, sy, ax, ay, r, c, cap, R, C, plane, bs,
-                         pp);
-#pragma unroll
-  for (int s = 0; s < MAXC; ++s) {
-    if (s < cap) {
-      axo[s * plane + b] = ax[s];
-      ayo[s * plane + b] = ay[s];
-    }
-  }
+// The plan's shape checks: the launch must be the one cuda_grid.step_plan
+// gives for (cap, R, C).
+bool plan_ok(int cap, int R, int C, int w, int seg, int threads, int blocks,
+             int smem) {
+  if (cap < 1 || cap > 32 || w < 1 || seg < 1) return false;
+  const int hb = w + 2;
+  const int nblocks = ((C + w - 1) / w) * ((R + seg - 1) / seg);
+  return threads % 32 == 0 && threads <= ppsim::kTileThreads &&
+         hb <= threads && blocks == nblocks &&
+         smem == ppsim::tile_layout(2, cap, hb, w).bytes;
 }
 
-// Calls launch(MAXC, LAW) with the instantiation covering cap (8, 16 or 32
-// slots) and law; returns cudaGetLastError() after it (0 = launched).
-template <typename F>
-int dispatch(int cap, int law, F&& launch) {
-  auto by_cap = [&](auto lawc) {
-    if (cap <= 8)
-      launch(std::integral_constant<int, 8>{}, lawc);
-    else if (cap <= 16)
-      launch(std::integral_constant<int, 16>{}, lawc);
-    else if (cap <= 32)
-      launch(std::integral_constant<int, 32>{}, lawc);
-    else
-      return (int)cudaErrorInvalidValue;
+template <bool MOVE>
+int launch(int law, const float* xl, const float* yl, const float* vx,
+           const float* vy, float* o0, float* o1, float* o2, float* o3,
+           float* sp, const Geo2& g, const Tile2& t, int threads, int blocks,
+           int smem, const PairParams& pp, float dt, float L,
+           cudaStream_t s) {
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<blocks, threads, smem, s>>>(xl, yl, vx, vy, o0, o1, o2, o3, sp,
+                                         g, t, pp, dt, L);
     return (int)cudaGetLastError();
   };
   if (law == (int)Law::kRepulsive)
-    return by_cap(std::integral_constant<Law, Law::kRepulsive>{});
-  if (law == (int)Law::kLJ)
-    return by_cap(std::integral_constant<Law, Law::kLJ>{});
+    return go(grid_tile_kernel<Law::kRepulsive, MOVE>);
+  if (law == (int)Law::kLJ) return go(grid_tile_kernel<Law::kLJ, MOVE>);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -225,43 +432,44 @@ int dispatch(int cap, int law, F&& launch) {
 
 extern "C" {
 
-// law 0 = repulsive, 1 = Lennard-Jones (pair_coef.cuh). Returns
-// cudaGetLastError() after the launch (0 = launched). cap <= 32.
+// law 0 = repulsive, 1 = Lennard-Jones (pair_coef.cuh). The launch plan
+// (strip width w, segment length, threads, blocks, shared bytes) must be
+// the one cuda_grid.step_plan gives for this shape; anything else returns
+// cudaErrorInvalidValue. Returns cudaGetLastError() after the launch
+// (0 = launched). cap <= 32.
 int ppsim_grid_step(const float* xl, const float* yl, const float* vx,
                     const float* vy, float* xo, float* yo, float* vxo,
                     float* vyo, float* sp, int device, int cap, int R, int C,
-                    int law, float bs, float c2, float cutoff, float mr2,
+                    int law, int w, int seg, int threads, int blocks,
+                    int smem, float bs, float c2, float cutoff, float mr2,
                     float inv_mass, float sig2, float lj_k, float mass,
                     float dt, float L, void* stream) {
+  if (!plan_ok(cap, R, C, w, seg, threads, blocks, smem))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
   const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
-  const dim3 block(128);
-  const dim3 grid((C + block.x - 1) / block.x, R);
-  return dispatch(cap, law, [&](auto maxc, auto lawc) {
-    grid_step_kernel<decltype(maxc)::value, decltype(lawc)::value>
-        <<<grid, block, 0, s>>>(xl, yl, vx, vy, xo, yo, vxo, vyo, sp, cap, R,
-                                C, bs, pp, dt, L);
-  });
+  return launch<true>(law, xl, yl, vx, vy, xo, yo, vxo, vyo, sp,
+                      Geo2{cap, R, C, bs}, Tile2{w, seg}, threads, blocks,
+                      smem, pp, dt, L, (cudaStream_t)stream);
 }
 
 // K6: accelerations (ax, ay) of the slab positions (xl, yl); arguments as
 // ppsim_grid_step's.
 int ppsim_grid_force(const float* xl, const float* yl, float* ax, float* ay,
-                     int device, int cap, int R, int C, int law, float bs,
+                     int device, int cap, int R, int C, int law, int w,
+                     int seg, int threads, int blocks, int smem, float bs,
                      float c2, float cutoff, float mr2, float inv_mass,
                      float sig2, float lj_k, float mass, void* stream) {
+  if (!plan_ok(cap, R, C, w, seg, threads, blocks, smem))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
   const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
-  const dim3 block(128);
-  const dim3 grid((C + block.x - 1) / block.x, R);
-  return dispatch(cap, law, [&](auto maxc, auto lawc) {
-    grid_force_kernel<decltype(maxc)::value, decltype(lawc)::value>
-        <<<grid, block, 0, s>>>(xl, yl, ax, ay, cap, R, C, bs, pp);
-  });
+  return launch<false>(law, xl, yl, nullptr, nullptr, ax, ay, nullptr,
+                       nullptr, nullptr, Geo2{cap, R, C, bs}, Tile2{w, seg},
+                       threads, blocks, smem, pp, 0.0f, 0.0f,
+                       (cudaStream_t)stream);
 }
 
 const char* ppsim_error_string(int err) {

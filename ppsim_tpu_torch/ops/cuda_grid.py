@@ -13,10 +13,23 @@ On CUDA tensors a wrapper launches its kernel; on CPU tensors it runs the
 plain twin; a tensor on any other device raises. There is no fallback from
 a kernel to the plain version. All take the force law (``"repulsive"`` or
 ``"lj"``, the kernels' ``pair_coef.cuh``).
+
+The step kernels (K1, K6 and the 3D K3) are tiled: each block walks a strip
+(a tile) of bins along one axis with a ring of row (slab) buffers in shared
+memory. :func:`step_plan` (and ``cuda_grid3.step3_plan``) choose the tile,
+the segment each block walks, the block size and the shared-memory bytes
+from the geometry alone; :func:`tile_smem` repeats the kernels' layout
+(``csrc/step_tile.cuh``) and the entry points refuse any other plan.
+:func:`plan_boxes` lists the bins each block owns and copies, so the plan
+can be checked without a card.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from ppsim_tpu_torch import _build
@@ -25,12 +38,91 @@ from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, f32, grid_force_xla, move
 from ppsim_tpu_torch.physics import lj_coef_from_r2
 
 __all__ = ["grid_step_cuda", "grid_step_plain", "grid_force_cuda",
-           "grid_force_plain", "MAX_CAP", "LAWS", "pair_args", "kernel_coef_of"]
+           "grid_force_plain", "MAX_CAP", "LAWS", "pair_args", "kernel_coef_of",
+           "TilePlan", "tile_smem", "step_plan", "plan_boxes", "SMEM_LIMIT"]
 
-# Largest slot capacity the kernel is instantiated for (csrc/grid_step.cu).
+# Largest slot capacity the kernels take (5 bits of a particle-list entry).
 MAX_CAP = 32
 # Law ids of csrc/pair_coef.cuh.
 LAWS = {"repulsive": 0, "lj": 1}
+
+# The launch plan of the tiled step kernels. Dynamic shared memory a block
+# may use on Hopper (227 KB), the block size (the kernels'
+# __launch_bounds__, ppsim::kTileThreads), the buffers of the ring (rows or
+# slabs y-1, y, y+1 and the one in flight), and the blocks a launch aims
+# for: ~24 per SM of an H100's 132, so that the last wave's tail is small.
+SMEM_LIMIT = 232_448
+TILE_THREADS = 256
+_RING = 4
+_TARGET_BLOCKS = 24 * 132
+# Fewest rows (slabs) a block walks: each block copies two halo rows.
+_MIN_SEG = 8
+# Strip width of K1/K6 (columns; rows of 66 bins with the halo).
+_STRIP_W = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """Launch plan of a tiled step kernel: ``tile`` the own bins of a block
+    across the walked axis ((w,) columns in 2D, (tx, tz) in 3D), ``seg``
+    rows (y-slabs) each block walks, ``threads`` per block, ``blocks`` in
+    the launch, ``smem`` bytes of dynamic shared memory."""
+
+    tile: Tuple[int, ...]
+    seg: int
+    threads: int
+    blocks: int
+    smem: int
+
+
+def _align16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def tile_smem(ncoords: int, cap: int, halo_bins: int, own_bins: int) -> int:
+    """Shared-memory bytes of a tiled step kernel's block
+    (``csrc/step_tile.cuh`` tile_layout): four buffers of ``ncoords``
+    coordinate planes over the halo bins plus their bounds, counts and the
+    own slot map, then the particle list, the per-own-bin speed maxima,
+    neighbour masks and face bounds, and the scan's warp sums."""
+    buf = (_align16(ncoords * cap * halo_bins * 4) + _align16(2 * ncoords * halo_bins * 4)
+           + _align16(halo_bins) + _align16(own_bins) + _align16(cap * own_bins))
+    return (_RING * buf + _align16(2 * cap * own_bins) + 2 * _align16(4 * own_bins)
+            + _align16(2 * ncoords * 4 * own_bins) + 4 * 32)
+
+
+def segment(extent: int, tiles: int) -> int:
+    """Rows (slabs) each block walks: enough segments that ``tiles`` x
+    segments reaches the target block count, but at least ``_MIN_SEG`` rows
+    each (and at most the whole extent)."""
+    want = -(-_TARGET_BLOCKS // tiles)
+    return min(extent, max(_MIN_SEG, -(-extent // want)))
+
+
+def step_plan(shape) -> TilePlan:
+    """K1/K6 launch plan for slab planes of ``shape`` = (cap, R, C): strips
+    of 64 columns (C is a multiple of 128), segments of rows."""
+    cap, R, C = shape
+    w = min(_STRIP_W, C)
+    strips = -(-C // w)
+    seg = segment(R, strips)
+    return TilePlan((w,), seg, TILE_THREADS, strips * -(-R // seg),
+                    tile_smem(2, cap, w + 2, w))
+
+
+def plan_boxes(plan: TilePlan, extents):
+    """The bins each block of ``plan`` owns, in the kernels' block order
+    (tiles of the last axis fastest, then the middle axis, then the walked
+    segment): an int array (blocks, ndim, 2) of [lo, hi) per axis, axes in
+    slab order ((R, C) or (Y, X, Z)), clipped to ``extents``. A block copies
+    its box grown by one bin on every axis, minus what lies outside the
+    kernels' masks."""
+    tile = (plan.seg, *plan.tile)
+    counts = [-(-e // t) for e, t in zip(extents, tile)]
+    idx = np.indices(counts).reshape(len(counts), -1).T
+    lo = idx * np.asarray(tile)
+    hi = np.minimum(lo + np.asarray(tile), np.asarray(extents))
+    return np.stack([lo, hi], axis=-1)
 
 
 def _require_law(law: str) -> None:
@@ -123,12 +215,14 @@ def grid_step_cuda(xl, yl, vx, vy, geom: SlabGeometry, cutoff, min_r, mass,
     if cap > MAX_CAP:
         raise ValueError(f"capacity {cap} > {MAX_CAP}, the kernel's largest")
     law_id, *consts = pair_args(law, cutoff, min_r, mass, law_params)
+    plan = step_plan(geom.shape)
     outs = [torch.empty_like(xl) for _ in range(4)]
     speed2 = torch.empty((R, C), dtype=torch.float32, device=xl.device)
     lib = _build.kernels()
     err = lib.ppsim_grid_step(
         *(t.data_ptr() for t in (xl, yl, vx, vy, *outs, speed2)),
-        xl.device.index, cap, R, C, law_id, f32(geom.bin_size), *consts,
+        xl.device.index, cap, R, C, law_id, *plan.tile, plan.seg,
+        plan.threads, plan.blocks, plan.smem, f32(geom.bin_size), *consts,
         f32(dt), f32(size), torch.cuda.current_stream(xl.device).cuda_stream)
     _build.check_launch(err, "grid_step kernel")
     grid_step_cuda.launches += 1
@@ -151,10 +245,12 @@ def grid_force_cuda(xl, yl, geom: SlabGeometry, cutoff, min_r, mass,
     if cap > MAX_CAP:
         raise ValueError(f"capacity {cap} > {MAX_CAP}, the kernel's largest")
     law_id, *consts = pair_args(law, cutoff, min_r, mass, law_params)
+    plan = step_plan(geom.shape)
     ax, ay = torch.empty_like(xl), torch.empty_like(yl)
     err = _build.kernels().ppsim_grid_force(
         xl.data_ptr(), yl.data_ptr(), ax.data_ptr(), ay.data_ptr(),
-        xl.device.index, cap, R, C, law_id, f32(geom.bin_size), *consts,
+        xl.device.index, cap, R, C, law_id, *plan.tile, plan.seg,
+        plan.threads, plan.blocks, plan.smem, f32(geom.bin_size), *consts,
         torch.cuda.current_stream(xl.device).cuda_stream)
     _build.check_launch(err, "grid_force kernel")
     grid_force_cuda.launches += 1

@@ -7,7 +7,8 @@ CUDA tensors and runs :func:`grid3_step_plain` on CPU tensors; a tensor on
 any other device raises. There is no fallback from the kernel to the plain
 version. One kernel covers both TPU variants (``_step3_kernel`` and
 ``_step3_kernel_nospeed``, which exists only because of the TPU's VMEM): the
-speed plane is always emitted.
+speed plane is always emitted. The kernel is tiled like K1
+(``cuda_grid``): :func:`step3_plan` gives its launch plan.
 """
 
 from __future__ import annotations
@@ -16,11 +17,34 @@ import torch
 
 from ppsim_tpu_torch import _build
 from ppsim_tpu_torch.ops.binning import BIG
-from ppsim_tpu_torch.ops.cuda_grid import MAX_CAP, _check_planes, kernel_coef_of, pair_args
+from ppsim_tpu_torch.ops.cuda_grid import (
+    MAX_CAP, TILE_THREADS, TilePlan, _check_planes, kernel_coef_of, pair_args, segment,
+    tile_smem,
+)
 from ppsim_tpu_torch.ops.grid3d_ops import Geometry3S, grid3_force_xla, move3_planes
 from ppsim_tpu_torch.ops.grid_ops import f32
 
-__all__ = ["grid3_step_cuda", "grid3_step_plain"]
+__all__ = ["grid3_step_cuda", "grid3_step_plain", "step3_plan"]
+
+# (x, z) tiles of K3, widest first; the plan takes the first whose block
+# leaves room for two blocks on an SM (228 KB less 1 KB per block).
+_TILES3 = ((4, 16), (4, 8), (2, 8))
+_SMEM_TWO_BLOCKS = 113 * 1024
+
+
+def step3_plan(shape) -> TilePlan:
+    """K3 launch plan for slab planes of ``shape`` = (cap, Y, X, Z): (x, z)
+    tiles of 4 x 16 bins (4 x 8 at capacities whose ring would not leave
+    room for two blocks per SM), walked in y in segments. X is a multiple of
+    8 and Z of 128, so the tiles divide them."""
+    cap, Y, X, Z = shape
+    for tx, tz in _TILES3:
+        smem = tile_smem(3, cap, (tx + 2) * (tz + 2), tx * tz)
+        if smem <= _SMEM_TWO_BLOCKS:
+            break
+    tiles = -(-X // tx) * -(-Z // tz)
+    seg = segment(Y, tiles)
+    return TilePlan((tx, tz), seg, TILE_THREADS, tiles * -(-Y // seg), smem)
 
 
 def grid3_step_plain(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
@@ -51,13 +75,14 @@ def grid3_step_cuda(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
     if cap > MAX_CAP:
         raise ValueError(f"capacity {cap} > {MAX_CAP}, the kernel's largest")
     law_id, *consts = pair_args(law, cutoff, min_r, mass, law_params)
+    plan = step3_plan(geom.shape)
     outs = [torch.empty_like(xl) for _ in range(6)]
     speed2 = torch.empty((Y, X, Z), dtype=torch.float32, device=xl.device)
     lib = _build.kernels()
     err = lib.ppsim_grid3_step(
         *(t.data_ptr() for t in (*planes, *outs, speed2)),
-        xl.device.index, cap, Y, X, Z, geom.xs, geom.zs,
-        law_id, f32(geom.bsx), f32(geom.bsy), f32(geom.bsz), *consts,
+        xl.device.index, cap, Y, X, Z, geom.xs, geom.zs, law_id, *plan.tile,
+        plan.seg, plan.threads, plan.blocks, plan.smem, f32(geom.bsx), f32(geom.bsy), f32(geom.bsz), *consts,
         f32(dt), f32(size), torch.cuda.current_stream(xl.device).cuda_stream)
     _build.check_launch(err, "grid3_step kernel")
     grid3_step_cuda.launches += 1
