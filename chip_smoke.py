@@ -19,7 +19,8 @@ Phases, each printing its result and seconds on its own line:
 3. the main path at full width: n = 20,971,520, 1000 steps, rebin cadence 11,
    engine ``cuda``, unsaved, through ``harness.timed_run``; the monitors must
    pass, every pid must sit in exactly one slot of the final slab, and both
-   kernels must have launched;
+   kernels must have launched; then K1 against its plain twin on the final
+   slab (the late-run state) and K1's time there;
 4. the 3D kernels against their plain twins on the card: K3 (fused 3D step)
    allclose, K4 (x + z pass) and K5 (y pass) bitwise,
    at the stretch geometry (n = 20,971,520, LJ: 140 x 152 x 256 bins,
@@ -33,7 +34,8 @@ Phases, each printing its result and seconds on its own line:
 6. the stretch config at full width: n = 20,971,520, 3D LJ, 1000 steps,
    engine ``cuda3d``, unsaved, through ``harness.timed_run``; monitors, pid
    census, positions in the box, launch counts and a checker PASS on the
-   final frame; then a ``torch.profiler`` window of two rebin periods;
+   final frame; K3 against its plain twin on the final slab and K3's time
+   there; then a ``torch.profiler`` window of two rebin periods;
 7. the rest of the 2D family against its plain twins on the card: K6
    (force-only) allclose with both laws on the main-path slab after 11 steps
    and on the padded n = 262,144 geometry, K7 (dirs9 counts) and K8 (dirs9
@@ -47,15 +49,18 @@ Phases, each printing its result and seconds on its own line:
    (monitors, pid census, positions in the box, K7/K8 launches), then the
    final state's accelerations through the engine's force-only API
    (``CudaGridEngine.accel_of``, K6) must obey Newton's third law (net force
-   ~0); its seconds beside phase 3's, and ``profiling.phase_times`` of the
-   ``cuda`` engine at the main-path config with each rebin mode.
+   ~0), K6 against its twin on that state and K6's time there; its seconds
+   beside phase 3's, and ``profiling.phase_times`` of the ``cuda`` engine at
+   the main-path config with each rebin mode.
 
 The line before the last is a JSON object with each kernel's launches in its
 full-width run (phase 3 for K1 and K2, phase 6 for K3-K5, phase 9 for K6-K8),
 its largest
 difference from the plain twin, its time beside the plain twin's and its
 bound (the larger of its bytes over 3.35 TB/s and its operations over 67
-TFLOP/s float32, counted from this run's inputs); the last line is
+TFLOP/s float32, counted from this run's inputs); the step kernels (K1, K3,
+K6) also give ``ms_late``, their time on the final state of their
+full-width run, beside ``ms`` on the early slab; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Without a CUDA device the script exits non-zero at once.
 """
@@ -75,9 +80,10 @@ N_MAIN = 20_971_520  # bench.py's 2D headline size
 STEPS_MAIN = 1000
 CADENCE_MAIN = 11  # bench.py TUNED_CADENCE
 SEED = 42
-# K1 parity: owner-computes sums in the plain twin's order, but rsqrtf and FMA
-# contraction move the last bits of the pair sums; accelerations reach ~1e4
-# in close encounters, so velocities carry ~1e-7 relative error.
+# K1 parity: owner-computes sums in the plain twin's order with the twin's
+# rounding, but the repulsive rsqrtf may differ from torch.rsqrt by an ulp;
+# accelerations reach ~1e4 in close encounters, so velocities carry ~1e-7
+# relative error.
 K1_RTOL, K1_ATOL = 1e-5, 1e-6
 # K3 parity: the same summation order and rounding as its twin; the
 # repulsive rsqrtf differs from torch.rsqrt by an ulp, which the force sums
@@ -85,7 +91,7 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-6
 K3_RTOL, K3_ATOL = 1e-5, 1e-6
 # K6 parity: K1's pair loop, but its outputs are the pair sums themselves,
 # where close pairs' terms cancel: 1e-5 relative, and 1e-6 of the largest
-# |a| absolute (FMA contraction moves the last bit of each term).
+# |a| absolute (an ulp of rsqrtf moves the last bit of a term).
 K6_RTOL, K6_ATOL_OF_MAX = 1e-5, 1e-6
 # Newton's third law on the full-width final state: each pair is evaluated
 # from both sides in bin-local frames, whose rounding differs by ~1e-6
@@ -154,6 +160,12 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def late_ms(fn) -> float:
+    """A step kernel's ms per call on a late-run slab: min of two runs of 10
+    calls."""
+    return min(cuda_ms(fn, 10), cuda_ms(fn, 10))
 
 
 def bound_of(nbytes: float, flops: float):
@@ -471,6 +483,17 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
         f"{cadence} warm-up), rebin3_inplane {k4['launches']}, rebin3_ypass "
         f"{k5['launches']} (schedule {STEPS_MAIN // cadence} + 1 warm-up)")
     log(f"  every pid 0..{n3 - 1} in exactly one slot")
+    # K3 on the final slab: the late-run state, LJ clusters included
+    slab_f = result.carry.slab
+    k3["max_abs_err"] = max(k3["max_abs_err"], k3_compare(
+        f"final slab ({STEPS_MAIN} steps)", slab_f, g3, cfg3))
+    a3f = (*slab_f[:6], g3, cfg3.cutoff, cfg3.min_r, cfg3.mass, cfg3.dt,
+           cfg3.size, cfg3.force_law, cfg3.law_params)
+    k3["ms_late"] = late_ms(lambda: grid3_step_cuda(*a3f))
+    log(f"  K3 on the final slab: {k3['ms_late']:.4f} ms/call (step-8 slab "
+        f"{k3['ms']:.4f}; bound there {k3['bound_ms']:.4f}; {smi})")
+    del slab_f, a3f
+    torch.cuda.empty_cache()
     _, win = profile_steps(engine, result.carry, STEPS_MAIN + 1, 2 * cadence)
     log(f"  torch.profiler, steps {win.steps.start}-{win.steps.stop - 1}:")
     for line in win.table().splitlines():
@@ -686,6 +709,10 @@ def phase_2d_rest(kernels, state, cfg, axes_seconds: float, smi: str) -> None:
     log(f"  Newton 3 on the final state (K6 via accel_of): net force "
         f"({net[0]:.6g}, {net[1]:.6g}) against summed |a| ({total[0]:.6g}, "
         f"{total[1]:.6g})")
+    k6["ms_late"] = late_ms(lambda: grid_force_cuda(
+        slab.xl, slab.yl, engine.geom, cfg.cutoff, cfg.min_r, cfg.mass))
+    log(f"  K6 on the final dirs9 state: {k6['ms_late']:.4f} ms/call "
+        f"(step-11 slab {k6['ms']:.4f}; {smi})")
     del result, slab, ax, ay, live
     for mode in ("axes", "dirs9"):
         eng_pt = get_engine("cuda", cfg.with_(grid_rebin_mode=mode), device=dev)
@@ -888,6 +915,16 @@ def main() -> int:
         f"+ {warm} warm-up), rebin_axes {k_rebin['launches']} (schedule "
         f"{STEPS_MAIN // CADENCE_MAIN} + 1 warm-up)")
     log(f"  every pid 0..{N_MAIN - 1} in exactly one slot")
+    # K1 on the final slab: the late-run state, rebinned 91 times
+    slab_f = result.carry.slab
+    k_step["max_abs_err"] = max(k_step["max_abs_err"], k1_compare(
+        f"final slab ({STEPS_MAIN} steps)", slab_f, geom, cfg))
+    a1f = (slab_f.xl, slab_f.yl, slab_f.vx, slab_f.vy, geom, cfg.cutoff,
+           cfg.min_r, cfg.mass, cfg.dt, cfg.size)
+    k_step["ms_late"] = late_ms(lambda: grid_step_cuda(*a1f))
+    log(f"  K1 on the final slab: {k_step['ms_late']:.4f} ms/call (step-11 "
+        f"slab {k_step['ms']:.4f}; {smi})")
+    del slab_f, a1f
     phase_line("3", "full-width main path clean", t0)
 
     del result, engine

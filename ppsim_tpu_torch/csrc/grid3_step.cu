@@ -11,38 +11,49 @@
 //
 // Bound. Memory: 6 planes read and 6 written once plus the speed plane,
 // 12 x cap x plane x 4 B (3.4 GB at the 20.97M stretch geometry, ~1 ms at
-// 3.35 TB/s). Operations: each live particle tests every live slot of its
-// 27 neighbour bins (~2.2G ordered candidate pairs per step there, of which
-// under 1% lie inside the cutoff: the bins are 2-4 cutoffs wide), ~10 float
-// ops each. So the issue rate of the distance tests, and what they cost in
-// addressing and divergence, is what bounds the kernel, not the force law.
-// Tensor cores have no part: each test is an elementwise float32 distance
-// held to the plain twin's rounding.
+// 3.35 TB/s). Operations: each live particle must meet every live slot of
+// its 27 neighbour bins, ~2.2G ordered candidate pairs per step there, of
+// which under 1% lie inside the cutoff (the bins are 2-4 cutoffs wide). So
+// what bounds the kernel on this card is the issue rate of distance tests
+// that fail, with their addressing and warp divergence; not the force law
+// and not the bytes. Tensor cores have no part: each test is an elementwise
+// float32 distance held to the plain twin's rounding.
 //
 // Design. One block owns an (x, z) tile of tx x tz bins over a segment of
 // y-slabs and walks it in y. It keeps a ring of four slab buffers in shared
 // memory, each the tile plus a one-bin halo in x and z: slabs y-1, y, y+1
 // for the slab it computes, and slab y+2, whose copies (cp.async, 4 bytes a
 // slot) are in flight meanwhile. When a slab arrives, each bin's live slots
-// are compacted in place, ascending, with a count per bin, so empty slots,
-// holes left by rebins and empty bins cost nothing in the pair loop.
-// Neighbour bins outside the physical grid (x >= xs, z >= zs, y off the
-// array) count as empty, as the twin masks them; a block never relies on
-// the contents of a bin it did not copy.
+// are compacted in place, ascending, with a count and the bounds of the live
+// coordinates per bin, so empty slots, holes left by rebins and empty bins
+// cost nothing. Neighbour bins outside the physical grid (x >= xs, z >= zs,
+// y off the array) count as empty, as the twin masks them; a block never
+// relies on the contents of a bin it did not copy.
+//
+// Most candidate tests fail, so the kernel cuts them without changing a
+// sum: per own bin it records which neighbour bins hold live slots and, for
+// each of its six faces, the nearest live coordinate beyond it; a particle
+// drops the neighbour bins beyond a face whose gap exceeds the cutoff. The
+// gap is computed with the pair loop's own rounded ops and rounding is
+// monotone, so every dropped pair would have failed r2 <= c2 and added an
+// exact zero; the kept pairs are summed in the same order as before.
 //
 // Thread mapping: one thread per live own particle of the slab (a block-wide
 // prefix sum lists them), so work follows the particles, not the slots.
-// Each thread walks the 27 neighbour bins' compacted lists in shared memory;
-// threads of one bin read the same addresses (broadcast), neighbouring bins
-// neighbouring words. Owner-computes and two-sided: each particle sums its
-// own force in the twin's order (DIRS3: dy, dx, dz ascending; neighbour
-// slots ascending), with every product and sum rounded as the twin's (no
-// FMA contraction), so no atomics touch the sums and the kernel is
-// deterministic. The bin's max |v|^2 is an atomicMax of the float bits in
-// shared memory (order-free). Dead own slots get their outputs (BIG, 0) when
-// their slab is compacted. The tile, the segment length, the block size and
-// the shared-memory bytes come from the Python plan (cuda_grid3.step3_plan),
-// which this entry point checks.
+// Each thread walks the compacted lists of its kept neighbour bins in shared
+// memory (threads of one bin read the same addresses, which broadcast).
+// Owner-computes and two-sided: each particle sums its own force in the
+// twin's order (DIRS3: dy, dx, dz ascending; neighbour slots ascending),
+// with every product and sum rounded as the twin's (no FMA contraction), so
+// no atomics touch the sums and the kernel is deterministic. The bin's max
+// |v|^2 is an atomicMax of the float bits in shared memory (order-free).
+// Dead own slots get their outputs (BIG, 0) when their slab is compacted.
+// One thread per own bin with its slots in registers, reading the same
+// shared-memory tiles, lost 2-15x to this mapping on the card (divergence
+// over the bins' counts), and the one-thread-per-bin kernel reading global
+// memory that this design replaces lost 3.7-5.2x (PERF.md). The tile, the segment
+// length, the block size and the shared-memory bytes come from the Python
+// plan (cuda_grid3.step3_plan), which this entry point checks.
 //
 // Numerics. Constants arrive as the float32 values the plain twin rounds.
 // The repulsive coefficient's rsqrtf may differ from torch.rsqrt by an ulp,
@@ -64,7 +75,6 @@ using ppsim::TileLayout;
 using ppsim::wall_fold;
 
 constexpr float kBig = 1.0e9f;
-
 
 // Direction bits (d = (dy+1)*9 + (dx+1)*3 + dz+1) with dx = -1, dy = -1,
 // dz = -1; shifted by 6, 18 and 2 they are the +1 sides.
@@ -238,99 +248,6 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
     const float* c0 = reinterpret_cast<const float*>(cur);
 
     const float yo = __fmul_rn((float)y, g.bsy);
-#ifdef PPSIM_STEP_PER_BIN
-    // A/B variant: one thread per own bin, its compacted slots in registers
-    // (capacity <= 16), the same cut with the bin's own bounds.
-    constexpr int M = 16;
-    if (tid < OB) {
-      const int ob = tid, own = cur[lay.ocnt + ob];
-      const int ox = ob / t.tz, oz = ob - ox * t.tz;
-      const int h0 = (ox + 1) * HZ + oz + 1;
-      float sx[M], sy[M], sz[M], ax[M], ay[M], az[M];
-#pragma unroll
-      for (int k = 0; k < M; ++k) {
-        sx[k] = k < own ? c0[k * HB + h0] : kBig;
-        sy[k] = k < own ? c0[(cap + k) * HB + h0] : kBig;
-        sz[k] = k < own ? c0[(2 * cap + k) * HB + h0] : kBig;
-        ax[k] = 0.0f;
-        ay[k] = 0.0f;
-        az[k] = 0.0f;
-      }
-      const float* bo = reinterpret_cast<const float*>(cur + lay.bnd) + h0;
-      uint32_t m = omask[ob];
-      const float* fc = face + ob;
-      if (__fsub_rn(__fadd_rn(fc[0], -g.bsx), bo[0]) < -cutm) m &= ~kDXM;
-      if (__fsub_rn(__fadd_rn(fc[OB], g.bsx), bo[HB]) > cutm)
-        m &= ~(kDXM << 6);
-      if (__fsub_rn(__fadd_rn(fc[2 * OB], -g.bsy), bo[2 * HB]) < -cutm)
-        m &= ~kDYM;
-      if (__fsub_rn(__fadd_rn(fc[3 * OB], g.bsy), bo[3 * HB]) > cutm)
-        m &= ~(kDYM << 18);
-      if (__fsub_rn(__fadd_rn(fc[4 * OB], -g.bsz), bo[4 * HB]) < -cutm)
-        m &= ~kDZM;
-      if (__fsub_rn(__fadd_rn(fc[5 * OB], g.bsz), bo[5 * HB]) > cutm)
-        m &= ~(kDZM << 2);
-      while (m) {
-        const int d = __ffs(m) - 1;
-        m &= m - 1;
-        const int dy = d / 9 - 1, dx = d / 3 % 3 - 1, dz = d % 3 - 1;
-        const unsigned char* nb = buf(y + dy);
-        const float offy = (float)dy * g.bsy;
-        const float offx = (float)dx * g.bsx;
-        const float offz = (float)dz * g.bsz;
-        const int hn = h0 + dx * HZ + dz;
-        const int n = nb[lay.ncnt + hn];
-        const float* px = reinterpret_cast<const float*>(nb) + hn;
-        const float* py = px + cap * HB;
-        const float* pz = py + cap * HB;
-        for (int j = 0; j < n; ++j) {
-          const float xno = __fadd_rn(px[j * HB], offx);
-          const float yno = __fadd_rn(py[j * HB], offy);
-          const float zno = __fadd_rn(pz[j * HB], offz);
-#pragma unroll
-          for (int k = 0; k < M; ++k) {
-            if (k < own) {
-              const float ddx = __fsub_rn(xno, sx[k]);
-              const float ddy = __fsub_rn(yno, sy[k]);
-              const float ddz = __fsub_rn(zno, sz[k]);
-              const float r2 = r2_of(ddx, ddy, ddz);
-              if (r2 <= pp.c2) {
-                const float coef = ppsim::pair_coef<LAW>(r2, pp);
-                ax[k] = __fadd_rn(ax[k], __fmul_rn(coef, ddx));
-                ay[k] = __fadd_rn(ay[k], __fmul_rn(coef, ddy));
-                az[k] = __fadd_rn(az[k], __fmul_rn(coef, ddz));
-              }
-            }
-          }
-        }
-      }
-      float spm = 0.0f;
-#pragma unroll
-      for (int k = 0; k < M; ++k) {
-        if (k < own) {
-          const int64_t i = cur[lay.slot + k * OB + ob] * plane +
-                            ((int64_t)y * g.X + x0 + ox) * g.Z + z0 + oz;
-          float vx = __fadd_rn(in.vx[i], __fmul_rn(ax[k], dt));
-          float vy = __fadd_rn(in.vy[i], __fmul_rn(ay[k], dt));
-          float vz = __fadd_rn(in.vz[i], __fmul_rn(az[k], dt));
-          float x = __fadd_rn(sx[k], __fmul_rn(vx, dt));
-          float yv = __fadd_rn(sy[k], __fmul_rn(vy, dt));
-          float z = __fadd_rn(sz[k], __fmul_rn(vz, dt));
-          wall_fold(x, vx, __fmul_rn((float)(x0 + ox), g.bsx), L, twoL);
-          wall_fold(yv, vy, yo, L, twoL);
-          wall_fold(z, vz, __fmul_rn((float)(z0 + oz), g.bsz), L, twoL);
-          out.x[i] = x;
-          out.y[i] = yv;
-          out.z[i] = z;
-          out.vx[i] = vx;
-          out.vy[i] = vy;
-          out.vz[i] = vz;
-          spm = fmaxf(spm, r2_of(vx, vy, vz));
-        }
-      }
-      spmax[ob] = __float_as_uint(spm);
-    }
-#else
     for (int p = tid; p < total; p += blockDim.x) {
       const int e = plist[p];
       const int ob = e >> 5, k = e & 31;
@@ -406,7 +323,6 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
       out.vz[i] = vz;
       atomicMax(&spmax[ob], __float_as_uint(r2_of(vx, vy, vz)));
     }
-#endif
     __syncthreads();
     if (tid < OB) {
       const int ox = tid / t.tz, oz = tid - ox * t.tz;

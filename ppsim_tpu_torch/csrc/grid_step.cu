@@ -14,38 +14,49 @@
 //
 // Bound. Memory: K1 reads 4 planes and writes 4 + the speed plane (~0.37 ms
 // at 1664^2 x 14 on 3.35 TB/s); K6 reads 2 and writes 2. Operations: each
-// live particle tests every live slot of its 9 neighbour bins (~1.4G ordered
-// candidate pairs per step on the main path), of which about 1% lie inside
-// the cutoff (bins are ~6 cutoffs wide). So the issue rate of the distance
-// tests, and what they cost in addressing and divergence, bounds both
-// kernels, not the force law and not the bytes. Tensor cores have no part:
-// each test is an elementwise float32 distance held to the plain twin's
-// rounding.
+// live particle must meet every live slot of its 9 neighbour bins (~1.4G
+// ordered candidate pairs per step on the main path), of which about 1% lie
+// inside the cutoff (bins are ~6 cutoffs wide). So what bounds both kernels
+// on this card is the issue rate of distance tests that fail, with their
+// addressing and warp divergence; not the force law and not the bytes.
+// Tensor cores have no part: each test is an elementwise float32 distance
+// held to the plain twin's rounding.
 //
 // Design. One block owns a strip of W columns over a segment of rows and
 // walks it row by row. It keeps a ring of four row buffers in shared memory,
 // each the strip plus one halo column on each side: rows r-1, r, r+1 for the
 // row it computes, and row r+2, whose copies (cp.async, 4 bytes a slot) are
 // in flight meanwhile. When a row arrives, each bin's live slots are
-// compacted in place, ascending, with a count per bin, so empty slots, holes
-// left by rebins and empty bins cost nothing in the pair loop. Bins outside
-// [0,R)x[0,C) count as empty (the block_ext fill and the lane masks of the
-// TPU kernel); a block never relies on the contents of a bin it did not
-// copy.
+// compacted in place, ascending, with a count and the bounds of the live
+// coordinates per bin, so empty slots, holes left by rebins and empty bins
+// cost nothing. Bins outside [0,R)x[0,C) count as empty (the block_ext fill
+// and the lane masks of the TPU kernel); a block never relies on the
+// contents of a bin it did not copy.
+//
+// Most candidate tests fail, so the kernels cut them without changing a
+// sum: per own bin they record which neighbour bins hold live slots and,
+// for each of its four faces, the nearest live coordinate beyond it; a
+// particle drops the neighbour bins beyond a face whose gap exceeds the
+// cutoff. The gap is computed with the pair loop's own rounded ops and
+// rounding is monotone, so every dropped pair would have failed r2 <= c2
+// and added an exact zero; the kept pairs are summed in the same order.
 //
 // Thread mapping: one thread per live own particle of the row (a block-wide
-// prefix sum lists them). Each thread walks the 9 neighbour bins' compacted
-// lists in shared memory; threads of one bin read the same addresses
-// (broadcast), neighbouring bins neighbouring words. Owner-computes and
-// two-sided: the TPU kernel evaluates each pair once (Newton 3) and scatters
-// the reaction through a row spill that the next grid block reads, which
-// relies on the TPU running grid blocks in order; CUDA blocks run in no
-// order. Each particle sums its own force in the twin's order (directions
-// in DIRS order, dr outer; neighbour slots ascending), so no atomics touch
-// the sums and the kernel is deterministic. The bin's max |v|^2 is an
-// atomicMax of the float bits in shared memory (order-free). Dead own slots
-// get their outputs (K1: BIG and 0; K6: 0) when their row is compacted. K1
-// and K6 are one template (MOVE), so their pair loops cannot drift apart.
+// prefix sum lists them). Each thread walks the compacted lists of its kept
+// neighbour bins in shared memory (threads of one bin read the same
+// addresses, which broadcast). Owner-computes and two-sided: the TPU kernel
+// evaluates each pair once (Newton 3) and scatters the reaction through a
+// row spill that the next grid block reads, which relies on the TPU running
+// grid blocks in order; CUDA blocks run in no order. Each particle sums its
+// own force in the twin's order (directions in DIRS order, dr outer;
+// neighbour slots ascending), so no atomics touch the sums and the kernel
+// is deterministic. The bin's max |v|^2 is an atomicMax of the float bits
+// in shared memory (order-free). Dead own slots get their outputs (K1: BIG
+// and 0; K6: 0) when their row is compacted. K1 and K6 are one template
+// (MOVE), so their pair loops cannot drift apart. One thread per own bin
+// with its slots in registers, reading the same shared-memory rows, lost
+// 1.4-8x to this mapping on the card, and the one-thread-per-bin kernels
+// reading global memory that this design replaces lost 2.5-3.5x (PERF.md).
 // The strip width, segment length, block size and shared-memory bytes come
 // from the Python plan (cuda_grid.step_plan), which the entry points check.
 //
@@ -55,14 +66,14 @@
 // Numerics. Constants arrive as the float32 values the JAX package rounds
 // (c2 = f32(cutoff^2), mr2 = f32(min_r^2), inv_mass = f32(1/mass)). The
 // repulsive coefficient uses grid_ops.pair_coef's op order, LJ
-// physics.lj_coef_from_r2's. rsqrtf differs from the CPU rsqrt by an ulp or
-// two and FMA contraction changes the last bit of the pair sums, so parity
-// with the plain twin is allclose. Under LJ the in-cutoff test rounds r2 as
-// the twin does: the truncated law jumps at the cutoff, and a contracted r2
-// put pairs within an ulp of it on the other side. The move tail uses
-// explicitly rounded ops (no contraction) and the floored modulo of jnp.mod:
-// fmodf (exact) with the sign fix, which is bit-identical to jnp.mod and
-// torch.remainder for the multi-bounce fold.
+// physics.lj_coef_from_r2's. Every product and sum of the pair loop is
+// rounded as the plain twin rounds it (no FMA contraction), as in K3: on a
+// late main-path slab close pairs' terms of ~1e6 cancel, and a contracted
+// sum put velocities 1.7e-6 off the twin. The repulsive rsqrtf may differ
+// from the CPU rsqrt by an ulp, so parity with the plain twin is allclose.
+// The move tail uses explicitly rounded ops and the floored modulo of
+// jnp.mod: fmodf (exact) with the sign fix, which is bit-identical to
+// jnp.mod and torch.remainder for the multi-bounce fold.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,7 +90,6 @@ using ppsim::TileLayout;
 using ppsim::wall_fold;
 
 constexpr float kBig = 1.0e9f;
-
 
 // Direction bits (d = (dr+1)*3 + dc+1) with dr = -1 and with dc = -1;
 // shifted by 6 and 2 they are the +1 sides.
@@ -226,90 +236,6 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
     const float* cc = reinterpret_cast<const float*>(cur);
 
     const float row_off = __fmul_rn((float)r, g.bs);
-#ifdef PPSIM_STEP_PER_BIN
-    // A/B variant: one thread per own bin, its compacted slots in registers
-    // (capacity <= 16), the same cut with the bin's own bounds.
-    constexpr int M = 16;
-    if (tid < OB) {
-      const int ob = tid, own = cur[lay.ncnt + ob + 1];
-      float sx[M], sy[M], ax[M], ay[M];
-#pragma unroll
-      for (int k = 0; k < M; ++k) {
-        sx[k] = k < own ? cc[k * HB + ob + 1] : kBig;
-        sy[k] = k < own ? cc[(cap + k) * HB + ob + 1] : kBig;
-        ax[k] = 0.0f;
-        ay[k] = 0.0f;
-      }
-      const float* bo = reinterpret_cast<const float*>(cur + lay.bnd) + ob + 1;
-      uint32_t m = omask[ob];
-      const float* fc = face + ob;
-      if (__fsub_rn(__fadd_rn(fc[0], -g.bs), bo[0]) < -cutm) m &= ~kDRM;
-      if (__fsub_rn(__fadd_rn(fc[OB], g.bs), bo[HB]) > cutm) m &= ~(kDRM << 6);
-      if (__fsub_rn(__fadd_rn(fc[2 * OB], -g.bs), bo[2 * HB]) < -cutm)
-        m &= ~kDCM;
-      if (__fsub_rn(__fadd_rn(fc[3 * OB], g.bs), bo[3 * HB]) > cutm)
-        m &= ~(kDCM << 2);
-      while (m) {
-        const int d = __ffs(m) - 1;
-        m &= m - 1;
-        const int dr = d / 3 - 1, dc = d % 3 - 1;
-        const unsigned char* nb = buf(r + dr);
-        const float offx = dr * g.bs;
-        const float offy = dc * g.bs;
-        const int hn = ob + 1 + dc;
-        const int n = nb[lay.ncnt + hn];
-        const float* px = reinterpret_cast<const float*>(nb) + hn;
-        const float* py = px + cap * HB;
-        for (int j = 0; j < n; ++j) {
-          const float xno = __fadd_rn(px[j * HB], offx);
-          const float yno = __fadd_rn(py[j * HB], offy);
-#pragma unroll
-          for (int k = 0; k < M; ++k) {
-            if (k < own) {
-              const float dx = __fsub_rn(xno, sx[k]);
-              const float dy = __fsub_rn(yno, sy[k]);
-              float r2;
-              if constexpr (LAW == Law::kLJ)
-                r2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-              else
-                r2 = dx * dx + dy * dy;
-              if (r2 <= pp.c2) {
-                const float coef = ppsim::pair_coef<LAW>(r2, pp);
-                ax[k] += coef * dx;
-                ay[k] += coef * dy;
-              }
-            }
-          }
-        }
-      }
-      float spm = 0.0f;
-#pragma unroll
-      for (int k = 0; k < M; ++k) {
-        if (k < own) {
-          const int64_t i = cur[lay.slot + k * OB + ob] * plane +
-                            (int64_t)r * g.C + c0 + ob;
-          if constexpr (MOVE) {
-            float vxs = __fadd_rn(vx[i], __fmul_rn(ax[k], dt));
-            float vys = __fadd_rn(vy[i], __fmul_rn(ay[k], dt));
-            float x = __fadd_rn(sx[k], __fmul_rn(vxs, dt));
-            float y = __fadd_rn(sy[k], __fmul_rn(vys, dt));
-            wall_fold(x, vxs, row_off, L, twoL);
-            wall_fold(y, vys, __fmul_rn((float)(c0 + ob), g.bs), L, twoL);
-            o0[i] = x;
-            o1[i] = y;
-            o2[i] = vxs;
-            o3[i] = vys;
-            spm = fmaxf(spm, __fadd_rn(__fmul_rn(vxs, vxs),
-                                       __fmul_rn(vys, vys)));
-          } else {
-            o0[i] = ax[k];
-            o1[i] = ay[k];
-          }
-        }
-      }
-      if (MOVE) spmax[ob] = __float_as_uint(spm);
-    }
-#else
     for (int p = tid; p < total; p += blockDim.x) {
       const int e = plist[p];
       const int ob = e >> 5, k = e & 31;
@@ -322,8 +248,7 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
       // lies more than a cutoff away: the gap is computed with the pair
       // loop's own rounded ops (neighbour + offset, minus own), rounding is
       // monotone, so every pair there would fail r2 <= c2 (cutm carries a
-      // 1e-6 margin over the cutoff, for the contracted r2 too). Cut pairs
-      // would add exact zeros.
+      // 1e-6 margin over the cutoff). Cut pairs would add exact zeros.
       uint32_t m = omask[ob];
       const float* fc = face + ob;
       if (__fsub_rn(__fadd_rn(fc[0], -g.bs), sx) < -cutm) m &= ~kDRM;
@@ -348,18 +273,11 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
           const float yno = __fadd_rn(py[j * HB], offy);
           const float dx = __fsub_rn(xno, sx);
           const float dy = __fsub_rn(yno, sy);
-          // Truncated LJ jumps at the cutoff, so its in-cutoff test takes
-          // r2 rounded as the twin rounds it (no FMA); the repulsive
-          // coefficient is 0 at the cutoff and keeps the contracted form.
-          float r2;
-          if constexpr (LAW == Law::kLJ)
-            r2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-          else
-            r2 = dx * dx + dy * dy;
+          const float r2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
           if (r2 <= pp.c2) {
             const float coef = ppsim::pair_coef<LAW>(r2, pp);
-            ax += coef * dx;
-            ay += coef * dy;
+            ax = __fadd_rn(ax, __fmul_rn(coef, dx));
+            ay = __fadd_rn(ay, __fmul_rn(coef, dy));
           }
         }
       }
@@ -383,7 +301,6 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
         o1[i] = ay;
       }
     }
-#endif
     __syncthreads();
     if (MOVE && tid < OB && c0 + tid < g.C)
       sp[(int64_t)r * g.C + c0 + tid] = __uint_as_float(spmax[tid]);

@@ -8,7 +8,10 @@
 // (and BIG-sentinel slots) never reach these bodies.
 //
 // - Repulsive: grid_ops.pair_coef's op order (rsqrt, then
-//   (inv2 - cutoff*rinv*inv2) * inv_mass), the body K1 has always had.
+//   (inv2 - cutoff*rinv*inv2) * inv_mass), each product and difference
+//   explicitly rounded as the plain twin rounds it (FMA contraction here
+//   moved K1's velocities 1.7e-6 off the twin on a late main-path slab,
+//   where close pairs' terms of ~1e6 cancel).
 // - Lennard-Jones: physics.lj_coef_from_r2's op order with IEEE division,
 //   explicitly rounded (no FMA contraction):
 //     s2 = sig2 / r2c;  s6 = s2*s2*s2;
@@ -41,8 +44,9 @@ template <>
 __device__ __forceinline__ float pair_coef<Law::kRepulsive>(
     float r2, const PairParams& p) {
   const float rinv = rsqrtf(fmaxf(r2, p.mr2));
-  const float inv2 = rinv * rinv;
-  return (inv2 - p.cutoff * rinv * inv2) * p.inv_mass;
+  const float inv2 = __fmul_rn(rinv, rinv);
+  return __fmul_rn(__fsub_rn(inv2, __fmul_rn(__fmul_rn(p.cutoff, rinv), inv2)),
+                   p.inv_mass);
 }
 
 template <>

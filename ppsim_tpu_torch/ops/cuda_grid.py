@@ -19,9 +19,8 @@ The step kernels (K1, K6 and the 3D K3) are tiled: each block walks a strip
 memory. :func:`step_plan` (and ``cuda_grid3.step3_plan``) choose the tile,
 the segment each block walks, the block size and the shared-memory bytes
 from the geometry alone; :func:`tile_smem` repeats the kernels' layout
-(``csrc/step_tile.cuh``) and the entry points refuse any other plan.
-:func:`plan_boxes` lists the bins each block owns and copies, so the plan
-can be checked without a card.
+(``csrc/step_tile.cuh``) and the entry points refuse any other plan, so
+the plan can be checked without a card.
 """
 
 from __future__ import annotations
@@ -29,7 +28,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from ppsim_tpu_torch import _build
@@ -39,7 +37,7 @@ from ppsim_tpu_torch.physics import lj_coef_from_r2
 
 __all__ = ["grid_step_cuda", "grid_step_plain", "grid_force_cuda",
            "grid_force_plain", "MAX_CAP", "LAWS", "pair_args", "kernel_coef_of",
-           "TilePlan", "tile_smem", "step_plan", "plan_boxes", "SMEM_LIMIT"]
+           "TilePlan", "tile_smem", "step_plan", "SMEM_LIMIT"]
 
 # Largest slot capacity the kernels take (5 bits of a particle-list entry).
 MAX_CAP = 32
@@ -101,28 +99,14 @@ def segment(extent: int, tiles: int) -> int:
 
 def step_plan(shape) -> TilePlan:
     """K1/K6 launch plan for slab planes of ``shape`` = (cap, R, C): strips
-    of 64 columns (C is a multiple of 128), segments of rows."""
+    of 64 columns, segments of rows. The chooser pads C to a multiple of
+    128, so the strips divide it; the kernels also take a ragged strip."""
     cap, R, C = shape
     w = min(_STRIP_W, C)
     strips = -(-C // w)
     seg = segment(R, strips)
     return TilePlan((w,), seg, TILE_THREADS, strips * -(-R // seg),
                     tile_smem(2, cap, w + 2, w))
-
-
-def plan_boxes(plan: TilePlan, extents):
-    """The bins each block of ``plan`` owns, in the kernels' block order
-    (tiles of the last axis fastest, then the middle axis, then the walked
-    segment): an int array (blocks, ndim, 2) of [lo, hi) per axis, axes in
-    slab order ((R, C) or (Y, X, Z)), clipped to ``extents``. A block copies
-    its box grown by one bin on every axis, minus what lies outside the
-    kernels' masks."""
-    tile = (plan.seg, *plan.tile)
-    counts = [-(-e // t) for e, t in zip(extents, tile)]
-    idx = np.indices(counts).reshape(len(counts), -1).T
-    lo = idx * np.asarray(tile)
-    hi = np.minimum(lo + np.asarray(tile), np.asarray(extents))
-    return np.stack([lo, hi], axis=-1)
 
 
 def _require_law(law: str) -> None:

@@ -28,15 +28,16 @@ __all__ = ["grid3_step_cuda", "grid3_step_plain", "step3_plan"]
 
 # (x, z) tiles of K3, widest first; the plan takes the first whose block
 # leaves room for two blocks on an SM (228 KB less 1 KB per block).
-_TILES3 = ((4, 16), (4, 8), (2, 8))
+_TILES3 = ((4, 16), (4, 8))
 _SMEM_TWO_BLOCKS = 113 * 1024
 
 
 def step3_plan(shape) -> TilePlan:
     """K3 launch plan for slab planes of ``shape`` = (cap, Y, X, Z): (x, z)
     tiles of 4 x 16 bins (4 x 8 at capacities whose ring would not leave
-    room for two blocks per SM), walked in y in segments. X is a multiple of
-    8 and Z of 128, so the tiles divide them."""
+    room for two blocks per SM, up to 32), walked in y in segments. The
+    choosers pad X to a multiple of 8 and Z to one of 128, so the tiles
+    divide them; the kernel also takes ragged edges."""
     cap, Y, X, Z = shape
     for tx, tz in _TILES3:
         smem = tile_smem(3, cap, (tx + 2) * (tz + 2), tx * tz)

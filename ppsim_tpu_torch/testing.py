@@ -3,6 +3,8 @@ seed, so that every device and both packages see identical data)."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 from ppsim_tpu_torch.convert import slab3_state_from_numpy, slab_state_from_numpy
@@ -10,7 +12,8 @@ from ppsim_tpu_torch.ops.binning import BIG
 from ppsim_tpu_torch.ops.grid3d_ops import Geometry3S, Slab3State
 from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, SlabState
 
-__all__ = ["STRESS_GEOMETRY", "stress_slab", "STRESS_GEOMETRY3", "stress_slab3"]
+__all__ = ["STRESS_GEOMETRY", "stress_slab", "STRESS_GEOMETRY3", "stress_slab3",
+           "STEP_SLAB_KINDS", "step_slab"]
 
 # 13 x 100 physical bins padded to 16 x 128, capacity 4: the JAX package's
 # contention geometry (tests/test_grid_ops.py).
@@ -97,3 +100,73 @@ def stress_slab3(geom: Geometry3S, seed: int = 0, far_movers: int = 0,
             fields[2][0, y, x, z] = 0.5 * geom.bsz
         fields[0][0, y, x, z] = 2.2 * geom.bsx  # raw x direction 2
     return slab3_state_from_numpy(*fields, pid, device=device)
+
+
+# The slabs the tiled step kernels (K1, K3, K6) are sensitive to.
+STEP_SLAB_KINDS = ("holey", "full", "edge")
+
+
+def step_slab(cfg, kind: str, device="cpu"):
+    """``(geom, slab)`` at the geometry of ``cfg`` (2D or 3D by
+    ``cfg.ndim``), made on the CPU from seed 42 and moved to ``device``:
+
+    - ``"holey"``: the plain engine's slab after four rebin periods from the
+      init, drifted by up to 0.3 bins (2D) or 0.2 bins (3D) so that pairs
+      meet inside the cutoff, then rebinned once more: rebins leave live
+      slots scattered among dead ones;
+    - ``"full"``: the packed init slab with one interior bin filled to
+      capacity on a lattice 0.8 cutoffs apart (its neighbour bins emptied
+      first, so that no pair comes closer);
+    - ``"edge"``: the packed init slab drifted as ``"holey"``, which keeps
+      the particles of the last physical bins beside the padding.
+    """
+    import torch
+
+    from ppsim_tpu_torch.engines import get_engine
+    from ppsim_tpu_torch.initlib import init_particles
+
+    three = cfg.ndim == 3
+    eng = get_engine("grid3d" if three else "grid", cfg, device="cpu")
+    state = init_particles(cfg, seed=42, method="fast" if three else "reference")
+    carry = eng.init_carry(state)
+    if kind == "holey":
+        for i in range(1, 4 * eng.rebin_every + 1):
+            carry = eng.step(carry, i)
+    arrays = [t.numpy().copy() for t in carry.slab]
+    geom, pid = eng.geom, arrays[-1]
+    ndim = 3 if three else 2
+    sides = (geom.bsx, geom.bsy, geom.bsz) if three else (geom.bin_size,) * 2
+    make = slab3_state_from_numpy if three else slab_state_from_numpy
+    rng = np.random.default_rng(7)
+    if kind in ("holey", "edge"):
+        # the drift of the other step tests: pairs meet inside the cutoff,
+        # the closest near half of it
+        frac = 0.2 if three else 0.3
+        live = pid >= 0
+        for k, bs in enumerate(sides):
+            arrays[k][live] += rng.uniform(-frac * bs, frac * bs,
+                                           live.sum()).astype(np.float32)
+        if kind == "holey":  # one more rebin: the drift's leavers move out
+            slab, _ = eng.rebin_of(make(*arrays))
+            arrays = [t.numpy() for t in slab]
+    elif kind == "full":
+        cap = geom.capacity
+        phys = (geom.ys, geom.xs, geom.zs) if three else (geom.rows, geom.cols)
+        centre = tuple(n // 2 for n in phys)
+        near = (slice(None),) + tuple(slice(c - 1, c + 2) for c in centre)
+        for k in range(ndim):
+            arrays[k][near] = BIG
+            arrays[ndim + k][near] = 0.0
+        pid[near] = -1
+        # a lattice 0.8 cutoffs apart about the bin's centre
+        side = math.ceil(cap ** (1.0 / ndim) - 1e-9)
+        for s in range(cap):
+            idx = (s,) + centre
+            for k, bs in enumerate(sides):
+                step = s // side ** k % side - (side - 1) / 2
+                arrays[k][idx] = 0.5 * bs + step * 0.8 * cfg.cutoff
+                arrays[ndim + k][idx] = rng.normal()
+            pid[idx] = int(pid.max()) + 1
+    else:
+        raise ValueError(f"unknown step slab kind {kind!r}")
+    return geom, make(*arrays, device=torch.device(device))

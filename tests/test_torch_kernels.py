@@ -35,13 +35,14 @@ from ppsim_tpu_torch.ops.cuda_rebin3 import (
     rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_ypass_cuda, rebin3_ypass_plain,
 )
 from ppsim_tpu_torch.testing import (
-    STRESS_GEOMETRY, STRESS_GEOMETRY3, stress_slab, stress_slab3,
+    STEP_SLAB_KINDS, STRESS_GEOMETRY, STRESS_GEOMETRY3, step_slab, stress_slab,
+    stress_slab3,
 )
 
-# K1 and K6 against their plain twins: same summation order, but rsqrtf and
-# FMA contraction may move the last bits of the pair sums. K6's outputs are
-# the sums themselves, where close pairs' terms (up to ~1e7 on these slabs)
-# cancel: its absolute tolerance is 1e-6 of the largest |a|.
+# K1 and K6 against their plain twins: same summation order and rounding,
+# but the repulsive rsqrtf may move the last bit of a pair term. K6's outputs
+# are the sums themselves, where close pairs' terms (up to ~1e7 on these
+# slabs) cancel: its absolute tolerance is 1e-6 of the largest |a|.
 RTOL, ATOL = 1e-5, 1e-6
 ACC_ATOL = 1e-6
 TINY = SimConfig(num_parts=200, grid_bin_scale=3.0, grid_capacity=6,
@@ -54,6 +55,12 @@ TINY3 = SimConfig(num_parts=500, ndim=3, density=7e-6, grid3_capacity=8,
                   evac_capacity=2, rebin3_every=4)
 PAD3 = SimConfig(num_parts=262_144, ndim=3, density=7e-6)
 LJ = dict(force_law="lj", dt=1e-4)
+# The tiled step kernels' sensitive slabs (testing.step_slab): 41 x 41 bins
+# padded to 48 x 128 at capacity 6 (2D); 5^3 bins padded to 5 x 8 x 128 at
+# capacity 8, the box filling its last bins (3D).
+TINY2 = SimConfig(num_parts=3000, grid_bin_scale=3.0, grid_capacity=6,
+                  evac_capacity=2, rebin_every=4)
+EDGE3 = TINY3.with_(num_parts=472)
 
 
 @pytest.fixture(autouse=True)
@@ -379,3 +386,78 @@ def test_cuda3d_engine_matches_grid3d_engine_on_card(cuda, law):
     torch.testing.assert_close(a.state.pos, b.state.pos, rtol=0, atol=1e-5)
     assert int(a.monitors.max_bin_count) == int(b.monitors.max_bin_count)
     assert int(a.monitors.migrate_dropped) == int(b.monitors.migrate_dropped) == 0
+
+
+def _step_kernels_match(cfg, geom, slab):
+    """K1 and K6 (2D) or K3 (3D) against their plain twins on ``slab``,
+    each launched exactly once."""
+    law = cfg.force_law
+    if cfg.ndim == 3:
+        args = _step3_args(cfg, geom)
+        before = grid3_step_cuda.launches
+        got = grid3_step_cuda(*slab[:6], *args)
+        assert grid3_step_cuda.launches == before + 1
+        want = grid3_step_plain(*slab[:6], *args)
+        assert float((want[3] - slab.vx).abs().max()) > 0  # forces act
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+        return
+    args = _step_args(cfg, geom) + (law, cfg.law_params)
+    before = (grid_step_cuda.launches, grid_force_cuda.launches)
+    got = grid_step_cuda(*slab[:4], *args)
+    for g, w in zip(got, grid_step_plain(*slab[:4], *args)):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    fargs = (geom, cfg.cutoff, cfg.min_r, cfg.mass, law, cfg.law_params)
+    acc = grid_force_cuda(*slab[:2], *fargs)
+    want = grid_force_plain(*slab[:2], *fargs)
+    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    assert scale > 1.0  # forces act
+    for g, w in zip(acc, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ACC_ATOL * scale)
+    assert (grid_step_cuda.launches, grid_force_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["repulsive", "lj"])
+@pytest.mark.parametrize("kind", STEP_SLAB_KINDS)
+@pytest.mark.parametrize("dim", ["2d", "3d"])
+def test_step_kernels_on_sensitive_slabs_on_card(cuda, dim, kind, law):
+    """K1, K6 and K3 on slabs with holes after rebins, a bin at capacity,
+    and particles in the edge bins beside the padding."""
+    cfg = TINY2 if dim == "2d" else EDGE3
+    cfg = cfg.with_(**LJ) if law == "lj" else cfg
+    geom, slab = step_slab(cfg, kind, device=cuda)
+    _step_kernels_match(cfg, geom, slab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["repulsive", "lj"])
+@pytest.mark.parametrize("dim", ["2d", "3d"])
+def test_step_kernels_on_ragged_geometry_on_card(cuda, dim, law):
+    """Array extents that the tiles and segments do not divide: 41 x 100
+    (strips of 64 columns, segments of 8 rows) and 5 x 7 x 21 (4 x 16 tiles,
+    one segment of all 5 slabs)."""
+    cfg = TINY2 if dim == "2d" else EDGE3
+    cfg = cfg.with_(**LJ) if law == "lj" else cfg
+    rng = np.random.default_rng(11)
+    st = init_particles(cfg, seed=42, method="fast" if dim == "3d" else "reference")
+    if dim == "2d":
+        geom = dataclasses.replace(grid_ops.SlabGeometry.for_config(cfg),
+                                   rows_pad=41, cols_pad=100)
+        slab, ovf = grid_ops.slab_from_particles(st.pos, st.vel, geom)
+        sides, frac = (geom.bin_size,) * 2, 0.3
+        make = slab_state_from_numpy
+    else:
+        geom = dataclasses.replace(grid3d_ops.Geometry3S.for_config(cfg),
+                                   xs_pad=7, zs_pad=21)
+        slab, ovf = grid3d_ops.slab3_from_particles(st.pos, st.vel, geom)
+        sides, frac = (geom.bsx, geom.bsy, geom.bsz), 0.2
+        make = slab3_state_from_numpy
+    assert int(ovf) == 0
+    arrays = [t.numpy().copy() for t in slab]
+    live = arrays[-1] >= 0
+    for k, bs in enumerate(sides):
+        arrays[k][live] += rng.uniform(-frac * bs, frac * bs,
+                                       live.sum()).astype(np.float32)
+    _step_kernels_match(cfg, geom, make(*arrays, device=cuda))
