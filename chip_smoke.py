@@ -10,22 +10,26 @@ Phases, each printing its result and seconds on its own line:
 0. the card (nvidia-smi name and power limit, torch's device name) and the
    kernel build from ``ppsim_tpu_torch/csrc`` (nvcc, sm_90a);
 1. each kernel against its plain PyTorch twin on the card: K1 (fused step)
-   allclose and K2 (rebin) bitwise at the main-path shape (n = 20,971,520:
-   1664 x 1664 bins, capacity 14), K2 also on a padded geometry and on a
-   contention slab; kernel and plain times with CUDA events; and the ``cuda``
-   engine against the plain ``grid`` engine on a small run;
+   allclose and K2 (fused rebin, one launch) bitwise at the main-path shape
+   (n = 20,971,520: 1664 x 1664 bins, capacity 14), K2 also on a padded
+   geometry, on a contention slab and on the slab with full bins and movers
+   on its strips' halo bins (``testing.rebin_edge_slab``); kernel and plain
+   times with CUDA events; and the ``cuda`` engine against the plain
+   ``grid`` engine on a small run;
 2. the CLI end to end: ``python -m ppsim_tpu_torch -n 262144 -s 42 --steps 200
    --engine cuda --check`` must print the summary line and a checker PASS;
 3. the main path at full width: n = 20,971,520, 1000 steps, rebin cadence 11,
    engine ``cuda``, unsaved, through ``harness.timed_run``; the monitors must
    pass, every pid must sit in exactly one slot of the final slab, and both
-   kernels must have launched; then K1 against its plain twin on the final
-   slab (the late-run state) and K1's time there;
+   kernels must have launched; peak device memory; then K1 and K2 against
+   their plain twins on the final slab (the late-run state) and their times
+   there;
 4. the 3D kernels against their plain twins on the card: K3 (fused 3D step)
-   allclose, K4 (x + z pass) and K5 (y pass) bitwise,
+   allclose, K4 (x + z pass, one launch) and K5 (y pass) bitwise,
    at the stretch geometry (n = 20,971,520, LJ: 140 x 152 x 256 bins,
    capacity 13) on the packed slab and after 8 steps, on the padded n =
-   262,144 geometry with both laws, and K4/K5 on a 3D contention slab; times
+   262,144 geometry with both laws, and K4/K5 on a 3D contention slab and on
+   the 3D ``rebin_edge_slab``; times
    at the stretch shape; K1 with the LJ law on the 2D main-path slab; the
    ``cuda3d`` engine against the plain ``grid3d`` engine on a small run;
 5. the 3D CLI end to end: ``python -m ppsim_tpu_torch -n 262144 --ndim 3
@@ -33,9 +37,10 @@ Phases, each printing its result and seconds on its own line:
    --check`` must print the summary line and a checker PASS;
 6. the stretch config at full width: n = 20,971,520, 3D LJ, 1000 steps,
    engine ``cuda3d``, unsaved, through ``harness.timed_run``; monitors, pid
-   census, positions in the box, launch counts and a checker PASS on the
-   final frame; K3 against its plain twin on the final slab and K3's time
-   there; then a ``torch.profiler`` window of two rebin periods;
+   census, positions in the box, launch counts, peak device memory and a
+   checker PASS on the final frame; K3, and K4 then K5, against their plain
+   twins on the final slab and their times there; then a ``torch.profiler``
+   window of two rebin periods;
 7. the rest of the 2D family against its plain twins on the card: K6
    (force-only) allclose with both laws on the main-path slab after 11 steps
    and on the padded n = 262,144 geometry, K7 (dirs9 counts) and K8 (dirs9
@@ -59,8 +64,9 @@ its largest
 difference from the plain twin, its time beside the plain twin's and its
 bound (the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s float32, counted from this run's inputs); the step kernels (K1, K3,
-K6) also give ``ms_late``, their time on the final state of their
-full-width run, beside ``ms`` on the early slab; the last line is
+K6) and the axis rebins (K2, K4, K5) also give ``ms_late``, their time on
+the final state of their full-width run, beside ``ms`` on the early slab;
+the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Without a CUDA device the script exits non-zero at once.
 """
@@ -311,11 +317,13 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
     from ppsim_tpu_torch.initlib import init_particles
     from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
     from ppsim_tpu_torch.ops.cuda_rebin3 import (
-        rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_ypass_cuda,
+        rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_plan, rebin3_ypass_cuda,
         rebin3_ypass_plain,
     )
     from ppsim_tpu_torch.profiling import profile_steps
-    from ppsim_tpu_torch.testing import STRESS_GEOMETRY3, stress_slab3
+    from ppsim_tpu_torch.testing import (
+        REBIN_EDGE_GEOMETRY3, STRESS_GEOMETRY3, rebin_edge_slab, stress_slab3,
+    )
 
     dev = torch.device("cuda", 0)
     k3, k4, k5 = (kernels[k] for k in ("grid3_step", "rebin3_inplane",
@@ -362,6 +370,9 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
                     cfg_p.evac_capacity)
     gs = STRESS_GEOMETRY3
     k45_compare("contention slab", stress_slab3(gs, 0, 2, dev), gs, 2)
+    ge = REBIN_EDGE_GEOMETRY3
+    k45_compare("strip-edge slab", rebin_edge_slab(ge, rebin3_plan(ge.shape), 0, dev),
+                ge, 2)
     k3["max_abs_err"] = err3
     k4["max_abs_err"] = k5["max_abs_err"] = 0.0
 
@@ -478,7 +489,7 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
     log(f"  monitors: max_bin_count {int(m.max_bin_count)} dropped "
         f"{int(m.migrate_dropped)} max_speed {float(m.max_speed):.4f} "
         f"deferred {int(m.deferred)}")
-    log(f"  peak device memory: {peak} bytes")
+    log(f"  peak device memory: {peak} bytes ({smi})")
     log(f"  launches: grid3_step {k3['launches']} (schedule {STEPS_MAIN} + "
         f"{cadence} warm-up), rebin3_inplane {k4['launches']}, rebin3_ypass "
         f"{k5['launches']} (schedule {STEPS_MAIN // cadence} + 1 warm-up)")
@@ -492,7 +503,14 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
     k3["ms_late"] = late_ms(lambda: grid3_step_cuda(*a3f))
     log(f"  K3 on the final slab: {k3['ms_late']:.4f} ms/call (step-8 slab "
         f"{k3['ms']:.4f}; bound there {k3['bound_ms']:.4f}; {smi})")
-    del slab_f, a3f
+    k45_compare(f"final slab ({STEPS_MAIN} steps)", slab_f, g3, cfg3.evac_capacity)
+    mid, cnt = rebin3_inplane_cuda(slab_f, g3, cfg3.evac_capacity)
+    k4["ms_late"] = late_ms(lambda: rebin3_inplane_cuda(slab_f, g3, cfg3.evac_capacity))
+    k5["ms_late"] = late_ms(lambda: rebin3_ypass_cuda(mid, cnt, g3, cfg3.evac_capacity))
+    log(f"  K4, K5 on the final slab: {k4['ms_late']:.4f}, {k5['ms_late']:.4f} "
+        f"ms/call (step-8 slab {k4['ms']:.4f}, {k5['ms']:.4f}; bounds there "
+        f"{k4['bound_ms']:.4f}, {k5['bound_ms']:.4f}; {smi})")
+    del slab_f, a3f, mid, cnt
     torch.cuda.empty_cache()
     _, win = profile_steps(engine, result.carry, STEPS_MAIN + 1, 2 * cadence)
     log(f"  torch.profiler, steps {win.steps.start}-{win.steps.stop - 1}:")
@@ -741,12 +759,14 @@ def main() -> int:
         grid_force_cuda, grid_step_cuda, grid_step_plain,
     )
     from ppsim_tpu_torch.ops.cuda_rebin import (
-        rebin_axes_call_cuda, rebin_axes_call_plain, rebin_counts_cuda,
+        rebin_axes_call_cuda, rebin_axes_call_plain, rebin_counts_cuda, rebin_plan,
         rebin_shuffle_cuda,
     )
     from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda
     from ppsim_tpu_torch.ops.cuda_rebin3 import rebin3_inplane_cuda, rebin3_ypass_cuda
-    from ppsim_tpu_torch.testing import STRESS_GEOMETRY, stress_slab
+    from ppsim_tpu_torch.testing import (
+        REBIN_EDGE_GEOMETRY, STRESS_GEOMETRY, rebin_edge_slab, stress_slab,
+    )
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -831,6 +851,9 @@ def main() -> int:
 
     gs = STRESS_GEOMETRY
     k2_compare("contention slab", stress_slab(gs, 0, 2, dev), gs, 2)
+    ge = REBIN_EDGE_GEOMETRY
+    k2_compare("strip-edge slab", rebin_edge_slab(ge, rebin_plan(ge.shape), 0, dev),
+               ge, 2)
     kernels["rebin_axes"]["max_abs_err"] = 0.0
 
     # times at the main-path shape: plain, kernel, kernel, plain
@@ -910,7 +933,8 @@ def main() -> int:
     log(f"  monitors: max_bin_count {int(m.max_bin_count)} dropped "
         f"{int(m.migrate_dropped)} max_speed {float(m.max_speed):.4f} "
         f"deferred {int(m.deferred)}")
-    log(f"  peak device memory: {torch.cuda.max_memory_allocated(dev)} bytes")
+    log(f"  peak device memory: {torch.cuda.max_memory_allocated(dev)} bytes "
+        f"({smi})")
     log(f"  launches: grid_step {k_step['launches']} (schedule {STEPS_MAIN} "
         f"+ {warm} warm-up), rebin_axes {k_rebin['launches']} (schedule "
         f"{STEPS_MAIN // CADENCE_MAIN} + 1 warm-up)")
@@ -924,6 +948,11 @@ def main() -> int:
     k_step["ms_late"] = late_ms(lambda: grid_step_cuda(*a1f))
     log(f"  K1 on the final slab: {k_step['ms_late']:.4f} ms/call (step-11 "
         f"slab {k_step['ms']:.4f}; {smi})")
+    k2_compare(f"final slab ({STEPS_MAIN} steps)", slab_f, geom, cfg.evac_capacity)
+    k_rebin["ms_late"] = late_ms(
+        lambda: rebin_axes_call_cuda(slab_f, geom, cfg.evac_capacity))
+    log(f"  K2 on the final slab: {k_rebin['ms_late']:.4f} ms/call (step-11 "
+        f"slab {k_rebin['ms']:.4f}; bound there {k_rebin['bound_ms']:.4f}; {smi})")
     del slab_f, a1f
     phase_line("3", "full-width main path clean", t0)
 

@@ -37,7 +37,7 @@ from ppsim_tpu_torch.physics import lj_coef_from_r2
 
 __all__ = ["grid_step_cuda", "grid_step_plain", "grid_force_cuda",
            "grid_force_plain", "MAX_CAP", "LAWS", "pair_args", "kernel_coef_of",
-           "TilePlan", "tile_smem", "step_plan", "SMEM_LIMIT"]
+           "TilePlan", "tile_smem", "step_plan", "SMEM_LIMIT", "SMEM_TWO_BLOCKS"]
 
 # Largest slot capacity the kernels take (5 bits of a particle-list entry).
 MAX_CAP = 32
@@ -50,6 +50,9 @@ LAWS = {"repulsive": 0, "lj": 1}
 # slabs y-1, y, y+1 and the one in flight), and the blocks a launch aims
 # for: ~24 per SM of an H100's 132, so that the last wave's tail is small.
 SMEM_LIMIT = 232_448
+# The largest block that leaves room for two on an SM (228 KB less 1 KB per
+# block): the tiled kernels' plans narrow their tile until it fits.
+SMEM_TWO_BLOCKS = 113 * 1024
 TILE_THREADS = 256
 _RING = 4
 _TARGET_BLOCKS = 24 * 132

@@ -18,8 +18,8 @@ import torch
 from ppsim_tpu_torch import _build
 from ppsim_tpu_torch.ops.binning import BIG
 from ppsim_tpu_torch.ops.cuda_grid import (
-    MAX_CAP, TILE_THREADS, TilePlan, _check_planes, kernel_coef_of, pair_args, segment,
-    tile_smem,
+    MAX_CAP, SMEM_TWO_BLOCKS, TILE_THREADS, TilePlan, _check_planes, kernel_coef_of,
+    pair_args, segment, tile_smem,
 )
 from ppsim_tpu_torch.ops.grid3d_ops import Geometry3S, grid3_force_xla, move3_planes
 from ppsim_tpu_torch.ops.grid_ops import f32
@@ -27,9 +27,8 @@ from ppsim_tpu_torch.ops.grid_ops import f32
 __all__ = ["grid3_step_cuda", "grid3_step_plain", "step3_plan"]
 
 # (x, z) tiles of K3, widest first; the plan takes the first whose block
-# leaves room for two blocks on an SM (228 KB less 1 KB per block).
+# leaves room for two blocks on an SM.
 _TILES3 = ((4, 16), (4, 8))
-_SMEM_TWO_BLOCKS = 113 * 1024
 
 
 def step3_plan(shape) -> TilePlan:
@@ -41,7 +40,7 @@ def step3_plan(shape) -> TilePlan:
     cap, Y, X, Z = shape
     for tx, tz in _TILES3:
         smem = tile_smem(3, cap, (tx + 2) * (tz + 2), tx * tz)
-        if smem <= _SMEM_TWO_BLOCKS:
+        if smem <= SMEM_TWO_BLOCKS:
             break
     tiles = -(-X // tx) * -(-Z // tz)
     seg = segment(Y, tiles)

@@ -2,10 +2,14 @@
 :mod:`ppsim_tpu.ops.pallas_rebin`, which holds both rebin modes).
 
 ``axes`` (the default): :func:`rebin_axes_call_cuda` launches K2
-(``csrc/rebin_axes.cu``: x pass, then y pass, two launches through an
-x-settled scratch slab); plain twin :func:`rebin_axes_call_plain`
-(``grid_ops.rebin_axes_planes``). Both return ``(SlabState, cnt)`` and decide
-every move exactly as ``grid_ops.grid_rebin_axes`` does (bitwise).
+(``csrc/rebin_axes.cu``: the x pass, then the y pass, in one launch through
+shared-memory tiles, ``csrc/rebin_tile.cuh``); plain twin
+:func:`rebin_axes_call_plain` (``grid_ops.rebin_axes_planes``). Both return
+``(SlabState, cnt)`` and decide every move exactly as
+``grid_ops.grid_rebin_axes`` does (bitwise). :func:`rebin_plan` gives K2's
+launch plan from the geometry alone and :func:`rebin_smem` repeats the
+kernel's shared-memory layout (K4's ``cuda_rebin3.rebin3_plan`` too); the
+entry point refuses any other plan.
 
 ``dirs9`` (the ablation): :func:`rebin_counts_cuda` launches K7 and
 :func:`rebin_shuffle_cuda` K8 (``csrc/rebin_dirs9.cu``); plain twins
@@ -27,7 +31,9 @@ from __future__ import annotations
 import torch
 
 from ppsim_tpu_torch import _build
-from ppsim_tpu_torch.ops.cuda_grid import MAX_CAP, _check_planes
+from ppsim_tpu_torch.ops.cuda_grid import (
+    MAX_CAP, SMEM_TWO_BLOCKS, TILE_THREADS, TilePlan, _align16, _check_planes, segment,
+)
 from ppsim_tpu_torch.ops.grid_ops import (
     SlabGeometry, SlabState, f32, monitor_planes, monitors_of_counts,
     rebin_axes_planes as rebin_axes_call_plain, rebin_counts, rebin_shuffle,
@@ -35,7 +41,49 @@ from ppsim_tpu_torch.ops.grid_ops import (
 
 __all__ = ["rebin_axes_call_cuda", "rebin_axes_call_plain", "grid_rebin_axes_cuda",
            "rebin_counts_cuda", "rebin_counts_plain", "rebin_shuffle_cuda",
-           "rebin_shuffle_plain", "grid_rebin_cuda"]
+           "rebin_shuffle_plain", "grid_rebin_cuda", "rebin_plan", "rebin_smem",
+           "strip_tile"]
+
+# Buffers in the fused rebin's ring (csrc/rebin_tile.cuh kRebinRing): the
+# rows w-1..w+2 that settle row w and the one in flight.
+_REBIN_RING = 5
+# Strip widths of K2, widest first: the plan takes the first whose block
+# leaves room for two blocks on an SM (32 up to capacity 30). Strips of 32
+# columns (4 blocks an SM at capacity 14) beat strips of 64 at every
+# segment length tried on the H100 (PERF.md).
+_TILES2 = (32, 16)
+
+
+def rebin_smem(nfields: int, cap: int, tile: int) -> int:
+    """Shared-memory bytes of a fused rebin block (``csrc/rebin_tile.cuh``
+    rebin_layout) with a strip of ``tile`` own bins and ``nfields`` planes
+    (5 in 2D, 7 in 3D): the ring of input rows over the strip and its halo
+    (1 bin before, 2 after) with their six masks, the walked pass's source map,
+    the settled row's masks, the final source map and the monitor counters."""
+    hb = tile + 3
+    buf = _align16(nfields * cap * hb * 4) + _align16(6 * hb * 4)
+    return (_REBIN_RING * buf + _align16(cap * hb) + _align16(3 * hb * 4)
+            + _align16(2 * cap * tile) + 2 * tile * 4)
+
+
+def strip_tile(nfields: int, cap: int, extent: int, tiles) -> int:
+    """The widest strip of ``tiles`` whose block fits two on an SM (else the
+    narrowest), no wider than the strip axis' ``extent``."""
+    for tile in tiles:
+        if rebin_smem(nfields, cap, tile) <= SMEM_TWO_BLOCKS:
+            break
+    return min(tile, extent)
+
+
+def rebin_plan(shape) -> TilePlan:
+    """K2 launch plan for slab planes of ``shape`` = (cap, R, C): strips of
+    32 columns (16 at capacities above 30), segments of rows
+    (``cuda_grid.segment``). The kernel takes a ragged last strip."""
+    cap, R, C = shape
+    t = strip_tile(5, cap, C, _TILES2)
+    strips = -(-C // t)
+    seg = segment(R, strips)
+    return TilePlan((t,), seg, TILE_THREADS, strips * -(-R // seg), rebin_smem(5, cap, t))
 
 
 def _check_slab(state: SlabState, geom: SlabGeometry) -> None:
@@ -46,21 +94,22 @@ def _check_slab(state: SlabState, geom: SlabGeometry) -> None:
 
 
 def rebin_axes_call_cuda(state: SlabState, geom: SlabGeometry, evac_cap: int):
-    """K2 on CUDA tensors (``rebin_axes_call_cuda.launches`` counts calls,
-    each of which launches both passes); the plain twin on CPU tensors."""
+    """K2 on CUDA tensors (``rebin_axes_call_cuda.launches`` counts the
+    launches, one a call); the plain twin on CPU tensors."""
     if state.xl.device.type == "cpu":
         return rebin_axes_call_plain(state, geom, evac_cap)
     _check_slab(state, geom)
     cap, R, C = geom.shape
-    # The x-settled scratch and the output are fresh buffers; the input slab
+    plan = rebin_plan(geom.shape)
+    # The output slab and the count planes are fresh buffers; the input slab
     # is left untouched.
-    mid = SlabState(*(torch.empty_like(t) for t in state))
     out = SlabState(*(torch.empty_like(t) for t in state))
     cnt = torch.empty((4, R, C), dtype=torch.int32, device=state.xl.device)
     lib = _build.kernels()
     err = lib.ppsim_rebin_axes(
-        *(t.data_ptr() for t in (*state, *mid, *out, cnt)),
+        *(t.data_ptr() for t in (*state, *out, cnt)),
         state.xl.device.index, cap, R, C, geom.rows, geom.cols, evac_cap,
+        *plan.tile, plan.seg, plan.threads, plan.blocks, plan.smem,
         f32(geom.bin_size), f32(1.0 / geom.bin_size),
         torch.cuda.current_stream(state.xl.device).cuda_stream)
     _build.check_launch(err, "rebin_axes kernel")

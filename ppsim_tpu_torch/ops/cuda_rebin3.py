@@ -14,6 +14,10 @@ tensor on any other device raises. Count planes are int32:
 
 :func:`grid3_rebin_cuda` chains them and sums the monitors in int64, so it
 has the contract of ``grid3d_ops.grid3_rebin_axes`` (bitwise).
+
+K4 settles the x pass and the z pass in one launch through shared-memory
+tiles (``csrc/rebin_tile.cuh``, as K2): :func:`rebin3_plan` gives its launch
+plan from the geometry alone, and the entry point refuses any other.
 """
 
 from __future__ import annotations
@@ -21,7 +25,10 @@ from __future__ import annotations
 import torch
 
 from ppsim_tpu_torch import _build
-from ppsim_tpu_torch.ops.cuda_grid import MAX_CAP, _check_planes
+from ppsim_tpu_torch.ops.cuda_grid import (
+    MAX_CAP, TILE_THREADS, TilePlan, _check_planes, segment,
+)
+from ppsim_tpu_torch.ops.cuda_rebin import rebin_smem, strip_tile
 from ppsim_tpu_torch.ops.grid3d_ops import (
     Geometry3S, Slab3State, _axis_pass, post_counts, rebin3_monitors, slab3_dirs,
     y_counts,
@@ -29,10 +36,25 @@ from ppsim_tpu_torch.ops.grid3d_ops import (
 from ppsim_tpu_torch.ops.grid_ops import f32
 
 __all__ = ["rebin3_inplane_cuda", "rebin3_inplane_plain", "rebin3_ypass_cuda",
-           "rebin3_ypass_plain", "grid3_rebin_cuda"]
+           "rebin3_ypass_plain", "grid3_rebin_cuda", "rebin3_plan"]
 
 # Count-plane indices of K4's stack.
 M_MINUS, ALIVE, M_PLUS, FAR_PRE, ALIVE_PRE = range(5)
+# Strip widths (z-bins) of K4, widest first: the plan takes the first whose
+# block leaves room for two blocks on an SM (32 up to capacity 22).
+_TILES3 = (32, 16)
+
+
+def rebin3_plan(shape) -> TilePlan:
+    """K4 launch plan for slab planes of ``shape`` = (cap, Y, X, Z): strips
+    of up to 32 z-bins of one y-slab, walked along x in segments
+    (``cuda_grid.segment``); blocks in the order (y, segment, strip), strips
+    fastest. The kernel takes a ragged last strip."""
+    cap, Y, X, Z = shape
+    t = strip_tile(7, cap, Z, _TILES3)
+    tiles = -(-Z // t) * Y
+    seg = segment(X, tiles)
+    return TilePlan((t,), seg, TILE_THREADS, tiles * -(-X // seg), rebin_smem(7, cap, t))
 
 
 def rebin3_inplane_plain(state: Slab3State, geom: Geometry3S, evac_cap: int):
@@ -68,20 +90,21 @@ def _geom_args(geom: Geometry3S):
 
 
 def rebin3_inplane_cuda(state: Slab3State, geom: Geometry3S, evac_cap: int):
-    """K4 on CUDA tensors (``rebin3_inplane_cuda.launches`` counts calls,
-    each of which launches the x and the z pass through a scratch slab); the
-    plain twin on CPU tensors. The input slab is left untouched."""
+    """K4 on CUDA tensors (``rebin3_inplane_cuda.launches`` counts the
+    launches, one a call); the plain twin on CPU tensors. The output slab and
+    the count planes are fresh buffers; the input slab is left untouched."""
     if state.xl.device.type == "cpu":
         return rebin3_inplane_plain(state, geom, evac_cap)
     _check_slab(state, geom)
     dev = state.xl.device
-    mid = Slab3State(*(torch.empty_like(t) for t in state))
+    plan = rebin3_plan(geom.shape)
     out = Slab3State(*(torch.empty_like(t) for t in state))
     counts = torch.empty((5, *geom.shape[1:]), dtype=torch.int32, device=dev)
     lib = _build.kernels()
     err = lib.ppsim_rebin3_inplane(
-        *(t.data_ptr() for t in (*state, *mid, *out, counts)),
-        dev.index, *_geom_args(geom), evac_cap, f32(geom.bsx), f32(geom.bsz),
+        *(t.data_ptr() for t in (*state, *out, counts)),
+        dev.index, *_geom_args(geom), evac_cap, *plan.tile, plan.seg,
+        plan.threads, plan.blocks, plan.smem, f32(geom.bsx), f32(geom.bsz),
         f32(1.0 / geom.bsx), f32(1.0 / geom.bsy), f32(1.0 / geom.bsz),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "rebin3_inplane kernel")

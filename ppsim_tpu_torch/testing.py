@@ -13,7 +13,8 @@ from ppsim_tpu_torch.ops.grid3d_ops import Geometry3S, Slab3State
 from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, SlabState
 
 __all__ = ["STRESS_GEOMETRY", "stress_slab", "STRESS_GEOMETRY3", "stress_slab3",
-           "STEP_SLAB_KINDS", "step_slab"]
+           "STEP_SLAB_KINDS", "step_slab", "REBIN_EDGE_GEOMETRY",
+           "REBIN_EDGE_GEOMETRY3", "rebin_edge_slab"]
 
 # 13 x 100 physical bins padded to 16 x 128, capacity 4: the JAX package's
 # contention geometry (tests/test_grid_ops.py).
@@ -170,3 +171,65 @@ def step_slab(cfg, kind: str, device="cpu"):
     else:
         raise ValueError(f"unknown step slab kind {kind!r}")
     return geom, make(*arrays, device=torch.device(device))
+
+
+# Geometries whose fused-rebin plans (K2 and K4: strips of 32 bins) cut the
+# array into several strips and segments, padding included:
+# 20 x 150 bins in 24 x 160 (2D) and 3 x 18 x 70 in 3 x 20 x 72 (3D),
+# capacity 6.
+REBIN_EDGE_GEOMETRY = SlabGeometry(rows=20, cols=150, rows_pad=24, cols_pad=160,
+                                   capacity=6, bin_size=0.05)
+REBIN_EDGE_GEOMETRY3 = Geometry3S(ys=3, xs=18, zs=70, ys_pad=3, xs_pad=20, zs_pad=72,
+                                  capacity=6, bsy=0.05, bsx=0.04, bsz=0.03)
+
+
+def rebin_edge_slab(geom, plan, seed: int = 0, device="cpu"):
+    """A slab whose rebin contention sits where the fused rebin kernels' blocks
+    meet (K2 and K4, ``csrc/rebin_tile.cuh``): every physical bin holds 0 to
+    ``capacity`` live particles in random slots, each up to one bin outside
+    its own on every axis; along the strip axis, around every multiple of the
+    plan's tile and the last physical bin, and along the walked axis around
+    every multiple of its segment, the bins hold ``capacity - 1``,
+    ``capacity``, ``capacity``, ``capacity - 1``, ``capacity`` particles
+    (offsets -2..2): full bins (no free slot) and one-slot bins on the
+    strips' halo bins, with movers both ways. ``geom`` is a 2D
+    :class:`SlabGeometry` with a ``cuda_rebin.rebin_plan`` or a
+    :class:`Geometry3S` with a ``cuda_rebin3.rebin3_plan``."""
+    rng = np.random.default_rng(seed)
+    three = isinstance(geom, Geometry3S)
+    cap = geom.capacity
+    if three:
+        phys = (geom.ys, geom.xs, geom.zs)
+        sides = (geom.bsx, geom.bsy, geom.bsz)  # fields xl, yl, zl
+        walked, strip = 1, 2  # array axes of the bins (y, x, z)
+        make = slab3_state_from_numpy
+    else:
+        phys = (geom.rows, geom.cols)
+        sides = (geom.bin_size,) * 2
+        walked, strip = 0, 1
+        make = slab_state_from_numpy
+    occ = rng.integers(0, cap + 1, size=phys)
+    pattern = (cap - 1, cap, cap, cap - 1, cap)
+    for axis, step in ((strip, plan.tile[0]), (walked, plan.seg)):
+        n = phys[axis]
+        for edge in sorted({*range(0, n, step), n - 1}):
+            for k, count in zip(range(edge - 2, edge + 3), pattern):
+                if 0 <= k < n:
+                    occ[(slice(None),) * axis + (k,)] = count
+    # occ live slots per bin, at random slot positions
+    rank = np.argsort(np.argsort(rng.random((cap, *phys)), axis=0), axis=0)
+    live = np.zeros(geom.shape, bool)
+    live[(slice(None),) + tuple(slice(0, n) for n in phys)] = rank < occ[None]
+    n_live = int(live.sum())
+    fields = []
+    for bs in sides:
+        f = np.full(geom.shape, BIG, np.float32)
+        f[live] = rng.uniform(-bs, 2 * bs, n_live)
+        fields.append(f)
+    for _ in sides:
+        v = np.zeros(geom.shape, np.float32)
+        v[live] = rng.normal(size=n_live)
+        fields.append(v)
+    pid = np.full(geom.shape, -1, np.int32)
+    pid[live] = rng.permutation(n_live).astype(np.int32)
+    return make(*fields, pid, device=device)

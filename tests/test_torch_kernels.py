@@ -1,5 +1,5 @@
-"""The kernel wrappers of ppsim_tpu_torch (K1 fused step, K2 rebin, K3 3D
-fused step, K4 + K5 3D rebin, K6 force-only, K7 + K8 dirs9 rebin) and their
+"""The kernel wrappers of ppsim_tpu_torch (K1 fused step, K2 fused rebin, K3
+3D fused step, K4 + K5 3D rebin, K6 force-only, K7 + K8 dirs9 rebin) and their
 build. This file imports no JAX, so it also runs on a GPU host without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -29,14 +29,15 @@ from ppsim_tpu_torch.ops.cuda_grid import (
 from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
 from ppsim_tpu_torch.ops.cuda_rebin import (
     rebin_axes_call_cuda, rebin_axes_call_plain, rebin_counts_cuda, rebin_counts_plain,
-    rebin_shuffle_cuda, rebin_shuffle_plain,
+    rebin_plan, rebin_shuffle_cuda, rebin_shuffle_plain,
 )
 from ppsim_tpu_torch.ops.cuda_rebin3 import (
-    rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_ypass_cuda, rebin3_ypass_plain,
+    rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_plan, rebin3_ypass_cuda,
+    rebin3_ypass_plain,
 )
 from ppsim_tpu_torch.testing import (
-    STEP_SLAB_KINDS, STRESS_GEOMETRY, STRESS_GEOMETRY3, step_slab, stress_slab,
-    stress_slab3,
+    REBIN_EDGE_GEOMETRY, REBIN_EDGE_GEOMETRY3, STEP_SLAB_KINDS, STRESS_GEOMETRY,
+    STRESS_GEOMETRY3, rebin_edge_slab, step_slab, stress_slab, stress_slab3,
 )
 
 # K1 and K6 against their plain twins: same summation order and rounding,
@@ -461,3 +462,55 @@ def test_step_kernels_on_ragged_geometry_on_card(cuda, dim, law):
         arrays[k][live] += rng.uniform(-frac * bs, frac * bs,
                                        live.sum()).astype(np.float32)
     _step_kernels_match(cfg, geom, make(*arrays, device=cuda))
+
+
+def _fused_rebin_geometry(dim, case):
+    """The edge geometries of testing.rebin_edge_slab (several strips and
+    segments, padding included); for ``ragged`` extents the strips do not
+    divide (2D 21 x 150 bins: four strips of 32 columns and one of 22; 3D
+    3 x 19 x 70: 32, 32 and 6 z-bins); ``cap32`` those at capacity 32
+    (strips of 16: the last of 6 bins)."""
+    geom = REBIN_EDGE_GEOMETRY if dim == "2d" else REBIN_EDGE_GEOMETRY3
+    if case != "edge":
+        geom = (dataclasses.replace(geom, rows_pad=21, cols_pad=150) if dim == "2d"
+                else dataclasses.replace(geom, xs_pad=19, zs_pad=70))
+    if case == "cap32":
+        geom = dataclasses.replace(geom, capacity=32)
+    return geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edge", "ragged", "cap32"])
+@pytest.mark.parametrize("dim", ["2d", "3d"])
+def test_fused_rebin_kernels_bitwise_on_edge_slabs_on_card(cuda, dim, case):
+    """K2 (2D) and K4 then K5 (3D) against their plain twins on a slab with
+    full bins and movers on the strips' halo bins, bitwise on every plane
+    and count plane; one launch each, and the input slab left untouched."""
+    geom = _fused_rebin_geometry(dim, case)
+    evac = 3 if case == "cap32" else 2
+    if dim == "2d":
+        slab = rebin_edge_slab(geom, rebin_plan(geom.shape), seed=5, device=cuda)
+        keep = [t.clone() for t in slab]
+        before = rebin_axes_call_cuda.launches
+        got = rebin_axes_call_cuda(slab, geom, evac)
+        assert rebin_axes_call_cuda.launches == before + 1
+        want = rebin_axes_call_plain(slab, geom, evac)
+        out = got[0]
+    else:
+        slab = rebin_edge_slab(geom, rebin3_plan(geom.shape), seed=5, device=cuda)
+        keep = [t.clone() for t in slab]
+        before = (rebin3_inplane_cuda.launches, rebin3_ypass_cuda.launches)
+        mid, cnt = rebin3_inplane_cuda(slab, geom, evac)
+        wmid, wcnt = rebin3_inplane_plain(slab, geom, evac)
+        for a, b in zip((*mid, cnt), (*wmid, wcnt)):
+            assert torch.equal(a, b)
+        got = rebin3_ypass_cuda(mid, cnt, geom, evac)
+        want = rebin3_ypass_plain(mid, cnt, geom, evac)
+        assert (rebin3_inplane_cuda.launches, rebin3_ypass_cuda.launches) == (
+            before[0] + 1, before[1] + 1)
+        out = got[0]
+    for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
+        assert torch.equal(a, b)
+    for a, b in zip(slab, keep):
+        assert torch.equal(a, b)
+    assert int((out.pid != slab.pid).sum()) > 100
