@@ -33,9 +33,8 @@
 
 namespace {
 
-// ptxas fits K2 in 80 registers, 3 blocks an SM; asking for a minimum of
-// blocks an SM only moved that (74 to 88 registers) and ran slower on the
-// H100 (PERF.md).
+// ptxas fits K2 in 80 registers without spilling, 3 blocks an SM, so its
+// launch bounds ask for no minimum of blocks (K4's do: rebin3.cu).
 __global__ void __launch_bounds__(ppsim::kTileThreads)
 rebin_axes_kernel(const ppsim::PlanesC<5> in, const ppsim::Planes<5> out,
                   int* __restrict__ cnt, const ppsim::RebinGeo g,

@@ -79,6 +79,19 @@ __device__ __forceinline__ uint32_t cap_mask(int cap) {
   return cap == 32 ? 0xffffffffu : ((1u << cap) - 1u);
 }
 
+// An entrant stream: the e-th accepted mover (the e-th set bit of `src`)
+// lands in the e-th set bit of `dst`; put(to, from) for each, in slot order.
+template <typename Put>
+__device__ __forceinline__ void stream(uint32_t src, uint32_t dst, Put put) {
+  while (src) {
+    const int from = __ffs(src) - 1;
+    const int to = __ffs(dst) - 1;
+    src &= src - 1u;
+    dst &= dst - 1u;
+    put(to, from);
+  }
+}
+
 // A bin's live slots and its -1 / +1 movers along one axis.
 struct Masks {
   uint32_t alive = 0, neg = 0, pos = 0;
@@ -112,19 +125,6 @@ struct PassMoves {
   uint32_t in_lo;   // slots of the bin before (-1) whose +1 movers enter
   int off_lo;       // empty-rank at which the +1 stream starts
 };
-
-// An entrant stream: the e-th accepted mover (the e-th set bit of `src`)
-// lands in the e-th set bit of `dst`; put(to, from) for each, in slot order.
-template <typename Put>
-__device__ __forceinline__ void stream(uint32_t src, uint32_t dst, Put put) {
-  while (src) {
-    const int from = __ffs(src) - 1;
-    const int to = __ffs(dst) - 1;
-    src &= src - 1u;
-    dst &= dst - 1u;
-    put(to, from);
-  }
-}
 
 // mm, m0, mp: the masks at offsets -1, 0, +1 along the axis; Fm, F0, Fp
 // their pre-pass free slots; cnt_m_p2 the -1 movers at offset +2.

@@ -49,8 +49,8 @@ __all__ = ["rebin_axes_call_cuda", "rebin_axes_call_plain", "grid_rebin_axes_cud
 _REBIN_RING = 5
 # Strip widths of K2, widest first: the plan takes the first whose block
 # leaves room for two blocks on an SM (32 up to capacity 30). Strips of 32
-# columns (4 blocks an SM at capacity 14) beat strips of 64 at every
-# segment length tried on the H100 (PERF.md).
+# columns, with cuda_grid.segment's rows, ran as fast as the fastest plan
+# tried on the H100 (PERF.md).
 _TILES2 = (32, 16)
 
 
