@@ -44,9 +44,11 @@ Phases, each printing its result and seconds on its own line:
 7. the rest of the 2D family against its plain twins on the card: K6
    (force-only) allclose with both laws on the main-path slab after 11 steps
    and on the padded n = 262,144 geometry, K7 (dirs9 counts) and K8 (dirs9
-   shuffle) bitwise on those slabs and on the contention slab; kernel and
-   plain times at the main-path shape; the ``cuda`` engine against the
-   plain ``grid`` engine with ``grid_rebin_mode="dirs9"`` on a small run;
+   shuffle, a strip walk through shared memory) bitwise on those slabs, on
+   the contention slab and on the slab with full bins and movers on K8's
+   strip and segment edges (``testing.rebin_edge_slab``); kernel and plain
+   times at the main-path shape; the ``cuda`` engine against the plain
+   ``grid`` engine with ``grid_rebin_mode="dirs9"`` on a small run;
 8. the CLI with dirs9: ``python -m ppsim_tpu_torch -n 262144 -s 42 --steps
    200 --engine cuda --grid-rebin-mode dirs9 --check`` must print the summary
    line and a checker PASS;
@@ -54,19 +56,18 @@ Phases, each printing its result and seconds on its own line:
    (monitors, pid census, positions in the box, K7/K8 launches), then the
    final state's accelerations through the engine's force-only API
    (``CudaGridEngine.accel_of``, K6) must obey Newton's third law (net force
-   ~0), K6 against its twin on that state and K6's time there; its seconds
-   beside phase 3's, and ``profiling.phase_times`` of the ``cuda`` engine at
-   the main-path config with each rebin mode.
+   ~0), K6, K7 and K8 against their twins on that state and their times
+   there; its seconds beside phase 3's, and ``profiling.phase_times`` of the
+   ``cuda`` engine at the main-path config with each rebin mode.
 
 The line before the last is a JSON object with each kernel's launches in its
 full-width run (phase 3 for K1 and K2, phase 6 for K3-K5, phase 9 for K6-K8),
 its largest
 difference from the plain twin, its time beside the plain twin's and its
 bound (the larger of its bytes over 3.35 TB/s and its operations over 67
-TFLOP/s float32, counted from this run's inputs); the step kernels (K1, K3,
-K6) and the axis rebins (K2, K4, K5) also give ``ms_late``, their time on
-the final state of their full-width run, beside ``ms`` on the early slab;
-the last line is
+TFLOP/s float32, counted from this run's inputs), and ``ms_late``, its
+time on the final state of its full-width run beside ``ms`` on the early
+slab; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Without a CUDA device the script exits non-zero at once.
 """
@@ -576,10 +577,12 @@ def phase_2d_rest(kernels, state, cfg, axes_seconds: float, smi: str) -> None:
     from ppsim_tpu_torch.ops.cuda_grid import grid_force_cuda, grid_force_plain
     from ppsim_tpu_torch.ops.cuda_rebin import (
         rebin_counts_cuda, rebin_counts_plain, rebin_shuffle_cuda,
-        rebin_shuffle_plain,
+        rebin_shuffle_plain, shuffle_plan,
     )
     from ppsim_tpu_torch.profiling import phase_times
-    from ppsim_tpu_torch.testing import STRESS_GEOMETRY, stress_slab
+    from ppsim_tpu_torch.testing import (
+        REBIN_EDGE_GEOMETRY, STRESS_GEOMETRY, rebin_edge_slab, stress_slab,
+    )
 
     dev = torch.device("cuda", 0)
     k6, k7, k8 = (kernels[k] for k in ("grid_force", "rebin_counts",
@@ -612,6 +615,9 @@ def phase_2d_rest(kernels, state, cfg, axes_seconds: float, smi: str) -> None:
     gs = STRESS_GEOMETRY
     k78_compare("contention slab", stress_slab(gs, 0, 2, dev), gs, 2,
                 want_dropped=2)
+    ge = REBIN_EDGE_GEOMETRY
+    k78_compare("strip-edge slab",
+                rebin_edge_slab(ge, shuffle_plan(ge.shape), 0, dev), ge, 2)
     k6["max_abs_err"] = err6
     k7["max_abs_err"] = k8["max_abs_err"] = 0.0
 
@@ -731,7 +737,17 @@ def phase_2d_rest(kernels, state, cfg, axes_seconds: float, smi: str) -> None:
         slab.xl, slab.yl, engine.geom, cfg.cutoff, cfg.min_r, cfg.mass))
     log(f"  K6 on the final dirs9 state: {k6['ms_late']:.4f} ms/call "
         f"(step-11 slab {k6['ms']:.4f}; {smi})")
-    del result, slab, ax, ay, live
+    # K7 and K8 on the final state: the late-run slab, rebinned 91 times
+    geom9, evac9 = engine.geom, cfg.evac_capacity
+    k78_compare(f"final dirs9 state ({STEPS_MAIN} steps)", slab, geom9, evac9)
+    counts = rebin_counts_cuda(slab, geom9)
+    k7["ms_late"] = late_ms(lambda: rebin_counts_cuda(slab, geom9))
+    k8["ms_late"] = late_ms(lambda: rebin_shuffle_cuda(slab, counts, geom9, evac9))
+    log(f"  K7, K8 on the final dirs9 state: {k7['ms_late']:.4f}, "
+        f"{k8['ms_late']:.4f} ms/call (step-11 slab {k7['ms']:.4f}, "
+        f"{k8['ms']:.4f}; bounds there {k7['bound_ms']:.4f}, "
+        f"{k8['bound_ms']:.4f}; {smi})")
+    del result, slab, ax, ay, live, counts
     for mode in ("axes", "dirs9"):
         eng_pt = get_engine("cuda", cfg.with_(grid_rebin_mode=mode), device=dev)
         pt = phase_times(eng_pt, state, steps=50)

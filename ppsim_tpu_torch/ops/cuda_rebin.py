@@ -12,7 +12,9 @@ kernel's shared-memory layout (K4's ``cuda_rebin3.rebin3_plan`` too); the
 entry point refuses any other plan.
 
 ``dirs9`` (the ablation): :func:`rebin_counts_cuda` launches K7 and
-:func:`rebin_shuffle_cuda` K8 (``csrc/rebin_dirs9.cu``); plain twins
+:func:`rebin_shuffle_cuda` K8 (``csrc/rebin_dirs9.cu``; K8 walks strips
+through shared memory as K2 does, on the plan :func:`shuffle_plan`, whose
+:func:`shuffle_smem` repeats the kernel's layout); plain twins
 :func:`rebin_counts_plain` (``grid_ops.rebin_counts``) and
 :func:`rebin_shuffle_plain` (``grid_ops.rebin_shuffle``). They decide every
 move exactly as ``grid_ops.grid_rebin`` does (bitwise).
@@ -42,16 +44,21 @@ from ppsim_tpu_torch.ops.grid_ops import (
 __all__ = ["rebin_axes_call_cuda", "rebin_axes_call_plain", "grid_rebin_axes_cuda",
            "rebin_counts_cuda", "rebin_counts_plain", "rebin_shuffle_cuda",
            "rebin_shuffle_plain", "grid_rebin_cuda", "rebin_plan", "rebin_smem",
-           "strip_tile"]
+           "shuffle_plan", "shuffle_smem", "strip_tile"]
 
 # Buffers in the fused rebin's ring (csrc/rebin_tile.cuh kRebinRing): the
 # rows w-1..w+2 that settle row w and the one in flight.
 _REBIN_RING = 5
-# Strip widths of K2, widest first: the plan takes the first whose block
-# leaves room for two blocks on an SM (32 up to capacity 30). Strips of 32
-# columns, with cuda_grid.segment's rows, ran as fast as the fastest plan
-# tried on the H100 (PERF.md).
+# Strip widths of K2 and K8, widest first: the plan takes the first whose
+# block leaves room for two blocks on an SM (K2: 32 up to capacity 30).
+# Strips of 32 columns, with cuda_grid.segment's rows, ran as fast as the
+# fastest plan tried for K2 on the H100 (PERF.md).
 _TILES2 = (32, 16)
+# K8's rings (csrc/rebin_dirs9.cu): the field rows r-1..r+1 and the count
+# rows r-2..r+2 that settle row r, one more of each in flight, and the off
+# tables of rows r-1..r+1; each field-buffer bin keeps 10 words of masks.
+_SHUFFLE_RINGS = (4, 6, 3)
+_SHUFFLE_MASK_WORDS = 10
 
 
 def rebin_smem(nfields: int, cap: int, tile: int) -> int:
@@ -66,11 +73,25 @@ def rebin_smem(nfields: int, cap: int, tile: int) -> int:
             + _align16(2 * cap * tile) + 2 * tile * 4)
 
 
-def strip_tile(nfields: int, cap: int, extent: int, tiles) -> int:
-    """The widest strip of ``tiles`` whose block fits two on an SM (else the
-    narrowest), no wider than the strip axis' ``extent``."""
+def shuffle_smem(cap: int, tile: int) -> int:
+    """Shared-memory bytes of a K8 block (``csrc/rebin_dirs9.cu``
+    shuffle_layout) with a strip of ``tile`` own bins: the ring of field rows
+    (5 planes over the strip and 1 bin each side, with their masks), of count
+    rows (9 planes, 2 bins each side) and of off tables (8 directions, 1 bin
+    each side), then the final source map and the monitor counters."""
+    nf, nc, no = _SHUFFLE_RINGS
+    hf, hc = tile + 2, tile + 4
+    fbuf = _align16(5 * cap * hf * 4) + _align16(_SHUFFLE_MASK_WORDS * hf * 4)
+    return (nf * fbuf + nc * _align16(9 * hc * 4) + _align16(no * 8 * hf * 4)
+            + _align16(2 * cap * tile) + 4 * tile * 4)
+
+
+def strip_tile(smem_of, extent: int, tiles) -> int:
+    """The widest strip of ``tiles`` whose block (``smem_of(tile)`` bytes)
+    fits two on an SM (else the narrowest), no wider than the strip axis'
+    ``extent``."""
     for tile in tiles:
-        if rebin_smem(nfields, cap, tile) <= SMEM_TWO_BLOCKS:
+        if smem_of(tile) <= SMEM_TWO_BLOCKS:
             break
     return min(tile, extent)
 
@@ -80,10 +101,22 @@ def rebin_plan(shape) -> TilePlan:
     32 columns (16 at capacities above 30), segments of rows
     (``cuda_grid.segment``). The kernel takes a ragged last strip."""
     cap, R, C = shape
-    t = strip_tile(5, cap, C, _TILES2)
+    t = strip_tile(lambda t: rebin_smem(5, cap, t), C, _TILES2)
     strips = -(-C // t)
     seg = segment(R, strips)
     return TilePlan((t,), seg, TILE_THREADS, strips * -(-R // seg), rebin_smem(5, cap, t))
+
+
+def shuffle_plan(shape) -> TilePlan:
+    """K8 launch plan for slab planes of ``shape`` = (cap, R, C): strips of
+    32 columns (16 where a block would not leave room for two on an SM),
+    segments of rows (``cuda_grid.segment``), one thread per (own bin,
+    direction) at least. The kernel takes a ragged last strip."""
+    cap, R, C = shape
+    t = strip_tile(lambda t: shuffle_smem(cap, t), C, _TILES2)
+    strips = -(-C // t)
+    seg = segment(R, strips)
+    return TilePlan((t,), seg, TILE_THREADS, strips * -(-R // seg), shuffle_smem(cap, t))
 
 
 def _check_slab(state: SlabState, geom: SlabGeometry) -> None:
@@ -169,11 +202,13 @@ def rebin_shuffle_cuda(state: SlabState, counts, geom: SlabGeometry, evac_cap: i
     _check_slab(state, geom)
     cap, R, C = geom.shape
     _check_planes((counts,), (9, R, C), dtype=torch.int32)
+    plan = shuffle_plan(geom.shape)
     out = SlabState(*(torch.empty_like(t) for t in state))
     cnt = torch.empty((4, R, C), dtype=torch.int32, device=state.xl.device)
     err = _build.kernels().ppsim_rebin_shuffle(
         *(t.data_ptr() for t in (*state, counts, *out, cnt)),
         state.xl.device.index, cap, R, C, geom.rows, geom.cols, evac_cap,
+        *plan.tile, plan.seg, plan.threads, plan.blocks, plan.smem,
         f32(geom.bin_size), f32(1.0 / geom.bin_size),
         torch.cuda.current_stream(state.xl.device).cuda_stream)
     _build.check_launch(err, "rebin_shuffle kernel")

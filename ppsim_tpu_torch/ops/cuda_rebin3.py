@@ -51,7 +51,7 @@ def rebin3_plan(shape) -> TilePlan:
     (``cuda_grid.segment``); blocks in the order (y, segment, strip), strips
     fastest. The kernel takes a ragged last strip."""
     cap, Y, X, Z = shape
-    t = strip_tile(7, cap, Z, _TILES3)
+    t = strip_tile(lambda t: rebin_smem(7, cap, t), Z, _TILES3)
     tiles = -(-Z // t) * Y
     seg = segment(X, tiles)
     return TilePlan((t,), seg, TILE_THREADS, tiles * -(-X // seg), rebin_smem(7, cap, t))

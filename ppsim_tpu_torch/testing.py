@@ -184,8 +184,9 @@ REBIN_EDGE_GEOMETRY3 = Geometry3S(ys=3, xs=18, zs=70, ys_pad=3, xs_pad=20, zs_pa
 
 
 def rebin_edge_slab(geom, plan, seed: int = 0, device="cpu"):
-    """A slab whose rebin contention sits where the fused rebin kernels' blocks
-    meet (K2 and K4, ``csrc/rebin_tile.cuh``): every physical bin holds 0 to
+    """A slab whose rebin contention sits where the strip-walking rebin
+    kernels' blocks meet (K2 and K4, ``csrc/rebin_tile.cuh``; K8,
+    ``csrc/rebin_dirs9.cu``): every physical bin holds 0 to
     ``capacity`` live particles in random slots, each up to one bin outside
     its own on every axis; along the strip axis, around every multiple of the
     plan's tile and the last physical bin, and along the walked axis around
@@ -193,8 +194,9 @@ def rebin_edge_slab(geom, plan, seed: int = 0, device="cpu"):
     ``capacity``, ``capacity``, ``capacity - 1``, ``capacity`` particles
     (offsets -2..2): full bins (no free slot) and one-slot bins on the
     strips' halo bins, with movers both ways. ``geom`` is a 2D
-    :class:`SlabGeometry` with a ``cuda_rebin.rebin_plan`` or a
-    :class:`Geometry3S` with a ``cuda_rebin3.rebin3_plan``."""
+    :class:`SlabGeometry` with a ``cuda_rebin.rebin_plan`` or
+    ``cuda_rebin.shuffle_plan``, or a :class:`Geometry3S` with a
+    ``cuda_rebin3.rebin3_plan``."""
     rng = np.random.default_rng(seed)
     three = isinstance(geom, Geometry3S)
     cap = geom.capacity

@@ -29,7 +29,7 @@ from ppsim_tpu_torch.ops.cuda_grid import (
 from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
 from ppsim_tpu_torch.ops.cuda_rebin import (
     rebin_axes_call_cuda, rebin_axes_call_plain, rebin_counts_cuda, rebin_counts_plain,
-    rebin_plan, rebin_shuffle_cuda, rebin_shuffle_plain,
+    rebin_plan, rebin_shuffle_cuda, rebin_shuffle_plain, shuffle_plan,
 )
 from ppsim_tpu_torch.ops.cuda_rebin3 import (
     rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_plan, rebin3_ypass_cuda,
@@ -302,11 +302,20 @@ def test_force_kernel_matches_plain_on_card(cuda, cfg, frac, law):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["tiny", "padded", "contention"])
+@pytest.mark.parametrize("case", ["tiny", "padded", "contention", "edge", "ragged", "cap32"])
 def test_dirs9_kernels_bitwise_on_card(cuda, case):
+    """K7 and K8 against their plain twins, bitwise on the count stack, the
+    five planes and the monitor stack: drifted packed slabs, the contention
+    slab, and K8's strip-edge slabs (full and one-slot bins around every
+    strip and segment edge of shuffle_plan; extents the strips and segments
+    do not divide; capacity 32)."""
     if case == "contention":
         geom, evac = STRESS_GEOMETRY, 2
         slab = stress_slab(geom, seed=3, far_movers=2, device=cuda)
+    elif case in ("edge", "ragged", "cap32"):
+        geom = _fused_rebin_geometry("2d", case)
+        evac = 3 if case == "cap32" else 2
+        slab = rebin_edge_slab(geom, shuffle_plan(geom.shape), seed=7, device=cuda)
     else:
         cfg = dataclasses.replace(TINY, num_parts=3000) if case == "tiny" else PAD2
         evac = cfg.evac_capacity
@@ -323,6 +332,44 @@ def test_dirs9_kernels_bitwise_on_card(cuda, case):
     assert int((out.pid != slab.pid).sum()) > 0
     if case == "contention":
         assert int(grid_ops.monitors_of_counts(cnt).dropped) == 2
+
+
+@pytest.mark.cuda
+def test_shuffle_entry_point_refuses_other_plans(cuda):
+    """K8's entry point launches only a plan with shuffle_plan's arithmetic
+    for the geometry: a strip, segment, block size, block count or shared
+    size that disagrees with the rest returns cudaErrorInvalidValue (1) and
+    writes nothing; shuffle_plan's own plan launches and equals the twin."""
+    geom = _fused_rebin_geometry("2d", "edge")
+    cap, R, C = geom.shape
+    slab = rebin_edge_slab(geom, shuffle_plan(geom.shape), seed=1, device=cuda)
+    counts = rebin_counts_cuda(slab, geom)
+    out = grid_ops.SlabState(*(torch.full_like(t, 7) for t in slab))
+    cnt = torch.full((4, R, C), 7, dtype=torch.int32, device=cuda)
+    plan = shuffle_plan(geom.shape)
+    good = (*plan.tile, plan.seg, plan.threads, plan.blocks, plan.smem)
+    lib = _build.kernels()
+
+    def launch(tile, seg, threads, blocks, smem):
+        err = lib.ppsim_rebin_shuffle(
+            *(t.data_ptr() for t in (*slab, counts, *out, cnt)), cuda.index, cap, R,
+            C, geom.rows, geom.cols, 2, tile, seg, threads, blocks, smem,
+            grid_ops.f32(geom.bin_size), grid_ops.f32(1.0 / geom.bin_size),
+            torch.cuda.current_stream(cuda).cuda_stream)
+        torch.cuda.synchronize()
+        return err
+
+    t, seg, threads, blocks, smem = good
+    for bad in ((16, seg, threads, blocks, smem), (t, seg // 2, threads, blocks, smem),
+                (t, seg, 128, blocks, smem), (t, seg, threads, blocks + 1, smem),
+                (t, seg, threads, blocks, smem + 16)):
+        assert launch(*bad) == 1, bad
+    for a in (*out, cnt):
+        assert bool((a == 7).all())
+    assert launch(*good) == 0
+    want, wcnt = rebin_shuffle_plain(slab, counts, geom, 2)
+    for a, b in zip((*out, cnt), (*want, wcnt)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
