@@ -162,14 +162,13 @@ struct Geo9 {
   float bs, inv;    // bin side, float32(1 / bin side)
 };
 
-// A/B variants: MASKP threads take each halo bin's masks (its slots split
-// among them, pooled by warp shuffles); MINB is the launch bound's blocks an
-// SM; RESB counts resid in the decisions (stayers from the masks, entrants
-// as they are placed) instead of per written slot; SKIP switches phases off
-// for timing only (1: no phase C, 2: no decisions (all slots keep), 4: no
-// masks (all 0)).
-template <int MASKP, int MINB, bool RESB, int SKIP>
-__global__ void __launch_bounds__(ppsim::kTileThreads, MINB)
+// Threads that take a halo bin's masks, its slots split among them.
+constexpr int kMaskThreads = 4;
+
+// ptxas fits K8 in 72 registers without spilling: 3 blocks (768 threads) an
+// SM, as its shared memory allows. A bound of 4 blocks an SM (64 registers)
+// ran ~13% slower on the H100 (PERF.md).
+__global__ void __launch_bounds__(ppsim::kTileThreads)
 rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
                      const Slab out, int* __restrict__ mon_out, const Geo9 g,
                      const int T, const int seg) {
@@ -244,23 +243,24 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
         b[e] = 0;
     }
   };
-  // A: the masks of a field row that has arrived, MASKP threads a halo bin
-  // (threads tid < n_mask_threads)
-  const int n_mask_threads = MASKP == 1 ? HF : (MASKP * HF + 31) & ~31;
+  // A: the masks of a field row that has arrived, kMaskThreads threads a
+  // halo bin pooled by warp shuffles (threads tid < n_mask_threads, whole
+  // warps)
+  const int n_mask_threads = (kMaskThreads * HF + 31) & ~31;
   auto take_masks = [&](int r) {
-    const int hb = tid / MASKP, p = tid % MASKP;
+    const int hb = tid / kMaskThreads, p = tid % kMaskThreads;
     const int cb = s0 - 1 + hb;
     unsigned char* b = fbuf(r);
     uint32_t alive = 0, far = 0;
     uint32_t mv[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) mv[k] = 0;
-    if (hb < HF && r >= 0 && r < g.R && cb >= 0 && cb < g.C && !(SKIP & 4)) {
+    if (hb < HF && r >= 0 && r < g.R && cb >= 0 && cb < g.C) {
       const float* xs = fplane(b, 0);
       const float* ys = fplane(b, 1);
       const int* pid = fpid(b);
 #pragma unroll 2
-      for (int s = p; s < cap; s += MASKP) {
+      for (int s = p; s < cap; s += kMaskThreads) {
         const int j = s * HF + hb;
         const float x = xs[j], y = ys[j];
         if (pid[j] < 0) continue;
@@ -275,7 +275,7 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
       }
     }
 #pragma unroll
-    for (int m = 1; m < MASKP; m <<= 1) {
+    for (int m = 1; m < kMaskThreads; m <<= 1) {
       alive |= __shfl_xor_sync(0xffffffffu, alive, m);
       far += __shfl_xor_sync(0xffffffffu, far, m);
 #pragma unroll
@@ -332,9 +332,8 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
     ppsim::cp_async_commit();
 
     // B: group d of the own bin, as source and as destination
-    uint32_t leave = 0, filled = 0, alive = 0, moving = 0;
-    int resid = 0;
-    if (own && !(SKIP & 2)) {
+    uint32_t leave = 0, filled = 0, alive = 0;
+    if (own) {
       const int hf = o + 1, hc = o + 2;  // the bin in field / count buffers
       auto cnt = [&](int k, int ddr, int ddc) {
         return cbuf(r + ddr)[k * HC + hc + ddc];
@@ -346,7 +345,6 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
       const uint32_t* M0 = masks(r);
       alive = M0[hf];
       const uint32_t mine = M0[(1 + d) * HF + hf];
-      moving = mine;
       leave = first_bits(mine, accepted_count(__popc(mine), g.evac,
                                               cap - cnt(4, dr, dc) - off_dest));
       // entrants: group d of the bin at -d, into my pre-rebin empty slots
@@ -356,16 +354,8 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
       uint32_t dst = ~alive & cmask;
       for (int i = 0; i < off && dst; ++i) dst &= dst - 1u;
       for (; n_in > 0 && dst; --n_in) {
-        const int t = __ffs(dst) - 1, j = __ffs(src) - 1;
-        fmap[t * T + o] = (uint16_t)(d << 5 | j);
-        if (RESB) {  // the entrant, recentred, still points out
-          unsigned char* b = fbuf(r - dr);
-          const int js = j * HF + hf - dc;
-          const float xn = __fsub_rn(fplane(b, 0)[js], dr * g.bs);
-          const float yn = __fsub_rn(fplane(b, 1)[js], dc * g.bs);
-          resid += (dir1(xn, r, g.rows, g.inv) != 0 ||
-                    dir1(yn, s0 + o, g.cols, g.inv) != 0) ? 1 : 0;
-        }
+        const int t = __ffs(dst) - 1;
+        fmap[t * T + o] = (uint16_t)(d << 5 | (__ffs(src) - 1));
         filled |= 1u << t;
         dst &= dst - 1u;
         src &= src - 1u;
@@ -376,10 +366,6 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
     for (int m = 1; m < 8; m <<= 1) {
       leave |= __shfl_xor_sync(0xffffffffu, leave, m);
       filled |= __shfl_xor_sync(0xffffffffu, filled, m);
-      if (RESB) {
-        moving |= __shfl_xor_sync(0xffffffffu, moving, m);
-        resid += __shfl_xor_sync(0xffffffffu, resid, m);
-      }
     }
     if (own) {
       // slots no entrant took: accepted leavers clear, the rest keep
@@ -390,15 +376,14 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
         mon[o] = (int)masks(r)[5 * HF + o + 1];
         mon[T + o] = __popc(alive);
         mon[2 * T + o] = __popc(alive & ~leave) + __popc(filled);
-        // resid: stayers pointing out, and the entrants that do
-        mon[3 * T + o] = RESB ? __popc(alive & ~leave & moving) + resid : 0;
+        mon[3 * T + o] = 0;
       }
     }
     __syncthreads();
 
     // C: the output planes, one thread per (slot, own bin), bins fastest
     const int64_t row = (int64_t)r * g.C + s0;
-    for (int e = tid; e < cap * T && !(SKIP & 1); e += blockDim.x) {
+    for (int e = tid; e < cap * T; e += blockDim.x) {
       const int s = e / T, oo = e - s * T;
       if (s0 + oo >= g.C) continue;
       const int64_t i = s * plane + row + oo;
@@ -425,14 +410,14 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
       out.vx[i] = fplane(b, 2)[j];
       out.vy[i] = fplane(b, 3)[j];
       out.pid[i] = pid;
-      if (!RESB && pid >= 0 &&
-          (dir1(x, r, g.rows, g.inv) != 0 || dir1(y, s0 + oo, g.cols, g.inv) != 0))
+      if (pid >= 0 && (dir1(x, r, g.rows, g.inv) != 0 ||
+                       dir1(y, s0 + oo, g.cols, g.inv) != 0))
         atomicAdd(&mon[3 * T + oo], 1);
     }
     ppsim::cp_async_wait_all();
     __syncthreads();
     if (r + 2 <= rb) take_row(r + 2);
-    if (tid < T && s0 + tid < g.C && !(SKIP & 1)) {
+    if (tid < T && s0 + tid < g.C) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) mon_out[k * plane + row + tid] = mon[k * T + tid];
     }
@@ -448,41 +433,6 @@ bool shuffle_plan_ok(const Geo9& g, int T, int seg, int threads, int blocks,
   const int64_t nblocks = (int64_t)((g.C + T - 1) / T) * ((g.R + seg - 1) / seg);
   return threads % 32 == 0 && threads <= ppsim::kTileThreads && 8 * T <= threads &&
          blocks == nblocks && smem == shuffle_layout(g.cap, T).bytes;
-}
-
-template <int MASKP, int MINB, bool RESB, int SKIP>
-int launch_shuffle(const SlabC& in, const int* counts, const Slab& out,
-                   int* mon, const Geo9& g, int T, int seg, int threads,
-                   int blocks, int smem, cudaStream_t s) {
-  if (!shuffle_plan_ok(g, T, seg, threads, blocks, smem))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = rebin_shuffle_kernel<MASKP, MINB, RESB, SKIP>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<blocks, threads, smem, s>>>(in, counts, out, mon, g, T, seg);
-  return (int)cudaGetLastError();
-}
-
-template <int MASKP, int MINB, bool RESB>
-int launch_skip(int skip, const SlabC& in, const int* counts, const Slab& out,
-                int* mon, const Geo9& g, int T, int seg, int threads,
-                int blocks, int smem, cudaStream_t s) {
-#define PPSIM_SKIP(K)                                                         \
-  if (skip == K)                                                              \
-    return launch_shuffle<MASKP, MINB, RESB, K>(in, counts, out, mon, g, T,   \
-                                                  seg, threads, blocks, smem, s);
-  PPSIM_SKIP(0)
-  if constexpr (MASKP == 4 && MINB == 1) {
-    PPSIM_SKIP(1)
-    PPSIM_SKIP(2)
-    PPSIM_SKIP(3)
-    PPSIM_SKIP(7)
-  }
-#undef PPSIM_SKIP
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -518,47 +468,19 @@ int ppsim_rebin_shuffle(const float* x, const float* y, const float* vx,
                         int threads, int blocks, int smem, float bs, float inv,
                         void* stream) {
   const Geo9 g{cap, R, C, rows, cols, evac, bs, inv};
-  const cudaError_t err = cudaSetDevice(device);
+  if (!shuffle_plan_ok(g, tile, seg, threads, blocks, smem))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_shuffle<4, 1, false, 0>(SlabC{x, y, vx, vy, pid}, counts,
-                                Slab{ox, oy, ovx, ovy, opid}, mon, g, tile,
-                                seg, threads, blocks, smem,
-                                (cudaStream_t)stream);
-}
-
-// The walk's A/B variants (shuffle_ab.py): `maskp` (1 or 4) threads a halo
-// bin's masks, a launch bound of `minb` (1 or 4) blocks an SM, resid in the
-// decisions or not, phases switched off by `skip` (0, or with maskp 4 and
-// minb 1: 1, 2, 3, 7). The entry point above is (4, 1, 0, 0).
-int ppsim_rebin_shuffle_variant(int maskp, int minb, int resb, int skip,
-                                const float* x, const float* y,
-                                const float* vx, const float* vy,
-                                const int* pid, const int* counts, float* ox,
-                                float* oy, float* ovx, float* ovy, int* opid,
-                                int* mon, int device, int cap, int R, int C,
-                                int rows, int cols, int evac, int tile,
-                                int seg, int threads, int blocks, int smem,
-                                float bs, float inv, void* stream) {
-  const Geo9 g{cap, R, C, rows, cols, evac, bs, inv};
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const SlabC in{x, y, vx, vy, pid};
-  const Slab out{ox, oy, ovx, ovy, opid};
-  const cudaStream_t s = (cudaStream_t)stream;
-#define PPSIM_VARIANT(P, M, RB)                                            \
-  if (maskp == P && minb == M && resb == RB)                               \
-    return launch_skip<P, M, RB>(skip, in, counts, out, mon, g, tile, seg, \
-                                 threads, blocks, smem, s);
-  PPSIM_VARIANT(1, 1, 0)
-  PPSIM_VARIANT(1, 4, 0)
-  PPSIM_VARIANT(4, 1, 0)
-  PPSIM_VARIANT(4, 4, 0)
-  PPSIM_VARIANT(1, 1, 1)
-  PPSIM_VARIANT(1, 4, 1)
-  PPSIM_VARIANT(4, 1, 1)
-  PPSIM_VARIANT(4, 4, 1)
-#undef PPSIM_VARIANT
-  return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(rebin_shuffle_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  rebin_shuffle_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      SlabC{x, y, vx, vy, pid}, counts, Slab{ox, oy, ovx, ovy, opid}, mon, g,
+      tile, seg);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"
