@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "slab_rebin.cuh"
 #include "step_tile.cuh"
 
@@ -165,9 +167,15 @@ struct Geo9 {
 // Threads that take a halo bin's masks, its slots split among them.
 constexpr int kMaskThreads = 4;
 
-// ptxas fits K8 in 72 registers without spilling: 3 blocks (768 threads) an
-// SM, as its shared memory allows. A bound of 4 blocks an SM (64 registers)
-// ran ~13% slower on the H100 (PERF.md).
+// Blocks K8 runs on an SM at most. Where 4 fit (at 64 registers or fewer
+// and capacity 14, 4 x 56 KB of shared memory), K8 ran 13-15% slower on the
+// H100 than with 3 (PERF.md), whether a launch bound or ptxas's own choice
+// brought it there: the entry point asks for a shared-memory carveout that
+// holds 3 blocks and not 4, which leaves the rest of the SM's 256 KB to L1.
+constexpr int kShuffleBlocksPerSM = 3;
+// Shared memory an H100 SM can hand to blocks, and what each block reserves.
+constexpr int kSmemPerSM = 228 * 1024, kSmemPerBlock = 1024;
+
 __global__ void __launch_bounds__(ppsim::kTileThreads)
 rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
                      const Slab out, int* __restrict__ mon_out, const Geo9 g,
@@ -477,6 +485,12 @@ int ppsim_rebin_shuffle(const float* x, const float* y, const float* vx,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
+  // the carveout, in percent, rounded up to a size the SM supports
+  const int64_t want = (int64_t)kShuffleBlocksPerSM * (smem + kSmemPerBlock);
+  err = cudaFuncSetAttribute(
+      rebin_shuffle_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)std::min<int64_t>(100, (want * 100 + kSmemPerSM - 1) / kSmemPerSM));
+  if (err != cudaSuccess) return (int)err;
   rebin_shuffle_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       SlabC{x, y, vx, vy, pid}, counts, Slab{ox, oy, ovx, ovy, opid}, mon, g,
       tile, seg);

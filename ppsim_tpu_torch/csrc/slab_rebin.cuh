@@ -63,12 +63,6 @@ __device__ __forceinline__ uint32_t first_bits(uint32_t m, int k) {
   return out;
 }
 
-// Index of the n-th (0-based) set bit of m (the caller guarantees it exists).
-__device__ __forceinline__ int nth_bit(uint32_t m, int n) {
-  for (int i = 0; i < n; ++i) m &= m - 1u;
-  return __ffs(m) - 1;
-}
-
 // Movers accepted from a group of `movers` (in slot order) under the
 // acceptance contract: rank < evac and off + rank < F, i.e. budget = F - off.
 __device__ __forceinline__ int accepted_count(int movers, int evac, int budget) {
