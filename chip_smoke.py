@@ -58,10 +58,24 @@ Phases, each printing its result and seconds on its own line:
    (``CudaGridEngine.accel_of``, K6) must obey Newton's third law (net force
    ~0), K6, K7 and K8 against their twins on that state and their times
    there; its seconds beside phase 3's, and ``profiling.phase_times`` of the
-   ``cuda`` engine at the main-path config with each rebin mode.
+   ``cuda`` engine at the main-path config with each rebin mode;
+10. the shard forms and the sharded engine ``sharded_grid`` on an in-process
+   mesh of 4 shards (``engines/mesh.LocalMesh``): (a) K1, K2, K7 and K8 with
+   a row offset and real ghost rows on the step-11 main-path slab cut into 4
+   shards, against their twins (K1 allclose, the rebins bitwise) and against
+   the rows of the single-device kernel's output on the whole slab (bitwise
+   for all four), and K2, K7, K8 also on the shard-edge slab and its
+   contention form (``testing.shard_edge_slab``); each shard form's time
+   beside the single-device call on the same rows; (b) the main path on
+   ``sharded_grid`` at full width (n = 20,971,520, 1000 steps, axes, cadence
+   11): monitors, pid census, a checker PASS on the final frame, the final
+   state bitwise equal to phase 3's, its seconds beside phase 3's, and a
+   profiler window of two rebin periods; (c) the same with dirs9 for 200
+   steps, against the single-device ``cuda`` engine's 200-step run.
 
 The line before the last is a JSON object with each kernel's launches in its
-full-width run (phase 3 for K1 and K2, phase 6 for K3-K5, phase 9 for K6-K8),
+full-width run (phase 3 for K1 and K2, phase 6 for K3-K5, phase 9 for K6-K8,
+phase 10 for the shard forms),
 its largest
 difference from the plain twin, its time beside the plain twin's and its
 bound (the larger of its bytes over 3.35 TB/s and its operations over 67
@@ -109,6 +123,9 @@ STRETCH = dict(num_parts=20_971_520, ndim=3, density=7e-6, force_law="lj",
                dt=1e-4)
 STRETCH_GEOM = (140, 152, 256, 13, 8)  # ys, xs, zs, capacity, cadence
 N_PAD3 = 262_144  # 41^3 bins padded to 41 x 48 x 128, capacity 10
+# Phase 10: shards of the in-process mesh, and the depth of the dirs9 run.
+SHARDS = 4
+STEPS_DIRS9_SHARDED = 200
 # Peak rates of one NVIDIA H100 SXM at 700 W (HBM3 bandwidth, dense FP32).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -216,6 +233,23 @@ def check_final(slab, pos, n: int, ndim: int, size: float) -> None:
                              f"box [0, {size}]")
 
 
+def final_frame_check(label: str, pos, cfg) -> None:
+    """The absmin/absavg checker on one (final) frame; raises on FAIL."""
+    from ppsim_tpu_torch.checker import ABSAVG_BAND, ABSMIN_BAND, frame_distance_stats
+
+    tc = time.perf_counter()
+    dmin, dsum, dcount = frame_distance_stats(pos.cpu().numpy(), cfg.cutoff)
+    absavg = dsum / dcount if dcount else float("inf")
+    cut = cfg.cutoff
+    verdict = dmin > ABSMIN_BAND * cut and absavg > ABSAVG_BAND * cut
+    log(f"  checker on the final frame of {label} ({time.perf_counter() - tc:.1f} s): "
+        f"{'PASS' if verdict else 'FAIL'} absmin {dmin:.6g} ({dmin / cut:.2f} "
+        f"cutoff), absavg {absavg:.6g} ({absavg / cut:.2f} cutoff), {dcount} "
+        f"interacting pairs")
+    if not verdict:
+        raise AssertionError(f"checker failed on the final frame of {label}")
+
+
 def run_cli(label: str, args) -> None:
     """``python -m ppsim_tpu_torch *args`` must exit 0 and print the summary
     line and a checker PASS."""
@@ -311,7 +345,6 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
     stretch config at full width. Fills the K3-K5 records of ``kernels``."""
     import torch
 
-    from ppsim_tpu_torch.checker import ABSAVG_BAND, ABSMIN_BAND, frame_distance_stats
     from ppsim_tpu_torch.config import SimConfig
     from ppsim_tpu_torch.engines import get_engine
     from ppsim_tpu_torch.harness import timed_run
@@ -472,17 +505,7 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
         raise AssertionError(f"launch counts {k3['launches']}, "
                              f"{k4['launches']}, {k5['launches']} below the "
                              "schedule")
-    tc = time.perf_counter()
-    dmin, dsum, dcount = frame_distance_stats(pos.cpu().numpy(), cfg3.cutoff)
-    absavg = dsum / dcount if dcount else float("inf")
-    cut = cfg3.cutoff
-    verdict = dmin > ABSMIN_BAND * cut and absavg > ABSAVG_BAND * cut
-    log(f"  checker on the final frame ({time.perf_counter() - tc:.1f} s): "
-        f"{'PASS' if verdict else 'FAIL'} absmin {dmin:.6g} "
-        f"({dmin / cut:.2f} cutoff), absavg {absavg:.6g} ({absavg / cut:.2f} "
-        f"cutoff), {dcount} interacting pairs")
-    if not verdict:
-        raise AssertionError("checker failed on the stretch config's final frame")
+    final_frame_check("the stretch config", pos, cfg3)
     m = result.monitors
     log(f"  n={n3} 3D LJ steps={STEPS_MAIN} rebin_every={cadence} "
         f"capacity={engine.capacity}: {seconds:.4f} s = "
@@ -758,6 +781,262 @@ def phase_2d_rest(kernels, state, cfg, axes_seconds: float, smi: str) -> None:
     phase_line("9", "dirs9 at full width clean", t0)
 
 
+def shard_forms(name, slab, geom, cfg, with_k1: bool):
+    """K1 (if ``with_k1``), K2, K7 and K8 in their shard forms on the
+    ``SHARDS`` shards of ``slab`` (``LocalMesh``: each shard its own tensors,
+    ghost rows copied by the mesh) against their twins and against the rows
+    of the single-device kernels' output on the whole slab. Returns K1's
+    largest difference from its twin and, per kernel, the calls on shard 1
+    (ghosts on both sides) for the timings: (shard form, twin with ghosts,
+    single-device call on the same rows)."""
+    import torch
+
+    from ppsim_tpu_torch.engines.mesh import LocalMesh
+    from ppsim_tpu_torch.ops.binning import BIG
+    from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda, grid_step_plain
+    from ppsim_tpu_torch.ops.cuda_rebin import (
+        rebin_axes_call_cuda, rebin_axes_call_plain, rebin_counts_cuda,
+        rebin_counts_plain, rebin_shuffle_cuda, rebin_shuffle_plain,
+    )
+    from ppsim_tpu_torch.ops.grid_ops import SLAB_FILLS, SlabState, monitors_of_counts
+
+    P, evac = SHARDS, cfg.evac_capacity
+    mesh = LocalMesh(P, slab.xl.device)
+    rl = slab.xl.shape[1] // P
+    shards = [SlabState(*fs) for fs in zip(*(mesh.split(f) for f in slab))]
+
+    def rows(t, d):
+        return t[:, d * rl:(d + 1) * rl] if t.dim() == 3 else t[d * rl:(d + 1) * rl]
+
+    def compare(label, d, got, want, whole):
+        for k, (g, w, f) in enumerate(zip(got, want, whole)):
+            assert_equal(f"{label} {name} shard {d} output {k}", g, w)
+            assert_equal(f"{label} {name} shard {d} output {k} vs single device",
+                         g, rows(f, d))
+
+    calls, err1 = {}, 0.0
+    if with_k1:
+        a1 = (geom, cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size)
+        whole = grid_step_cuda(*slab[:4], *a1)
+        gx, gy = (mesh.halo([s[k] for s in shards], BIG, 1, 1) for k in (0, 1))
+        for d, s in enumerate(shards):
+            kw = dict(row0=d * rl, ghosts=(gx[d][0], gy[d][0], gx[d][1], gy[d][1]))
+            got = grid_step_cuda(*s[:4], *a1, **kw)
+            want = grid_step_plain(*s[:4], *a1, **kw)
+            for p, g, w, f in zip(("xl", "yl", "vx", "vy", "speed2"), got, want, whole):
+                err1 = max(err1, assert_close(f"K1 {name} shard {d} {p}", g, w,
+                                              K1_RTOL, K1_ATOL))
+                assert_equal(f"K1 {name} shard {d} {p} vs single device", g, rows(f, d))
+            if d == 1:
+                calls["k1"] = (lambda s=s, kw=kw: grid_step_cuda(*s[:4], *a1, **kw),
+                               lambda s=s, kw=kw: grid_step_plain(*s[:4], *a1, **kw),
+                               lambda s=s: grid_step_cuda(*s[:4], *a1))
+        del whole
+    whole = rebin_axes_call_cuda(slab, geom, evac)
+    halos = [mesh.halo([s[k] for s in shards], SLAB_FILLS[k], 1, 2 if k in (0, 4) else 1)
+             for k in range(5)]
+    for d, s in enumerate(shards):
+        kw = dict(row0=d * rl, field_ghosts=[h[d] for h in halos])
+        got, cnt = rebin_axes_call_cuda(s, geom, evac, **kw)
+        want, wcnt = rebin_axes_call_plain(s, geom, evac, **kw)
+        compare("K2", d, (*got, cnt), (*want, wcnt), (*whole[0], whole[1]))
+        if d == 1:
+            calls["k2"] = (lambda s=s, kw=kw: rebin_axes_call_cuda(s, geom, evac, **kw),
+                           lambda s=s, kw=kw: rebin_axes_call_plain(s, geom, evac, **kw),
+                           lambda s=s: rebin_axes_call_cuda(s, geom, evac))
+    mon2 = [int(v) for v in monitors_of_counts(whole[1])]
+    del whole
+    wcounts = rebin_counts_cuda(slab, geom)
+    whole = rebin_shuffle_cuda(slab, wcounts, geom, evac)
+    counts = [rebin_counts_cuda(s, geom, row0=d * rl) for d, s in enumerate(shards)]
+    fh = [mesh.halo([s[k] for s in shards], SLAB_FILLS[k], 1, 1) for k in range(5)]
+    ch = mesh.halo(counts, 0, 2, 2)
+    for d, s in enumerate(shards):
+        compare("K7", d, (counts[d],), (rebin_counts_plain(s, geom, row0=d * rl),),
+                (wcounts,))
+        kw = dict(row0=d * rl, field_ghosts=[h[d] for h in fh], count_ghosts=ch[d])
+        got, cnt = rebin_shuffle_cuda(s, counts[d], geom, evac, **kw)
+        want, wcnt = rebin_shuffle_plain(s, counts[d], geom, evac, **kw)
+        compare("K8", d, (*got, cnt), (*want, wcnt), (*whole[0], whole[1]))
+        if d == 1:
+            c0 = rebin_counts_cuda(s, geom)
+            calls["k7"] = (lambda s=s: rebin_counts_cuda(s, geom, row0=rl),
+                           lambda s=s: rebin_counts_plain(s, geom, row0=rl),
+                           lambda s=s: rebin_counts_cuda(s, geom))
+            calls["k8"] = (
+                lambda s=s, c=counts[d], kw=kw: rebin_shuffle_cuda(s, c, geom, evac, **kw),
+                lambda s=s, c=counts[d], kw=kw: rebin_shuffle_plain(s, c, geom, evac, **kw),
+                lambda s=s, c=c0: rebin_shuffle_cuda(s, c, geom, evac))
+    mon9 = [int(v) for v in monitors_of_counts(whole[1])]
+    log(f"  shard forms, {name} ({P} shards of {rl} rows, real ghost rows): "
+        + (f"K1 allclose to its twin (rtol {K1_RTOL:g}, atol {K1_ATOL:g}; max abs "
+           f"diff {err1:.3e}) and bitwise equal to the single-device K1's rows; "
+           if with_k1 else "")
+        + "K2, K7, K8 bitwise equal to their twins and to the single-device "
+        f"kernels' rows; monitors (max_occ, dropped, deferred) axes {mon2}, "
+        f"dirs9 {mon9}")
+    return err1, calls
+
+
+def phase_sharded(kernels, state, cfg, ref3, smi: str) -> None:
+    """Phase 10: the shard forms of K1, K2, K7 and K8 and the sharded engine
+    at full width. Fills the shard-form records of ``kernels``; ``ref3`` is
+    phase 3's (final ParticleState, seconds)."""
+    import torch
+
+    from ppsim_tpu_torch.engines import get_engine
+    from ppsim_tpu_torch.harness import timed_run
+    from ppsim_tpu_torch.profiling import profile_steps
+    from ppsim_tpu_torch.testing import SHARD_EDGE_GEOMETRY, shard_edge_slab
+
+    dev = torch.device("cuda", 0)
+    P = SHARDS
+    recs = {k: kernels[f"{name}_shard"] for k, name in (
+        ("k1", "grid_step"), ("k2", "rebin_axes"), ("k7", "rebin_counts"),
+        ("k8", "rebin_shuffle"))}
+
+    # ---- (a) the shard forms against their twins and the single device ----
+    t0 = time.perf_counter()
+    eng = get_engine("cuda", cfg, device=dev)
+    geom = eng.geom
+    carry = eng.init_carry(state)
+    for _ in range(CADENCE_MAIN):
+        carry = eng.step_plain(carry)
+    slab11 = carry.slab
+    del carry, eng
+    err1, calls = shard_forms(f"main-path slab after {CADENCE_MAIN} steps", slab11,
+                              geom, cfg, with_k1=True)
+    ge = SHARD_EDGE_GEOMETRY
+    for contention in (False, True):
+        shard_forms("shard-edge slab" + (" (contention)" if contention else ""),
+                    shard_edge_slab(ge, P, seed=1, contention=contention, device=dev),
+                    ge, cfg.with_(evac_capacity=2), with_k1=False)
+    recs["k1"]["max_abs_err"] = err1
+    for k in ("k2", "k7", "k8"):
+        recs[k]["max_abs_err"] = 0.0
+    # times on shard 1 (416 rows, ghosts on both sides): the shard form, the
+    # single-device call on the same rows (no ghosts), the twin with ghosts
+    times = {}
+    for k, (shard_fn, plain_fn, single_fn) in calls.items():
+        a = [cuda_ms(shard_fn, 20), cuda_ms(single_fn, 20)]
+        a += [cuda_ms(shard_fn, 20), cuda_ms(single_fn, 20)]
+        times[k] = (min(a[0], a[2]), min(a[1], a[3]), cuda_ms(plain_fn, 2))
+    # bounds on shard 1 of this slab: the single-device bytes of its rows
+    # plus the ghost rows read (K1: 2 planes x 2 rows; K2: 5 planes above,
+    # 7 rows below; K8: 5 field planes x 2 rows and 9 count planes x 4)
+    rl = geom.rows_pad // P
+    s1 = slab11.pid[:, rl:2 * rl]
+    plane_b = 4 * s1.numel()
+    bin_b = plane_b // geom.capacity
+    row_b = 4 * geom.capacity * geom.cols_pad
+    ext = slab11.pid[:, rl - 1:2 * rl + 1]
+    pairs1 = (candidate_pairs(ext) - candidate_pairs(ext[:, :1])
+              - candidate_pairs(ext[:, -1:]))
+    for k, nbytes, flops in (
+            ("k1", 8 * plane_b + bin_b + 4 * row_b, 5 * pairs1),
+            ("k2", 10 * plane_b + 4 * bin_b + 12 * row_b, 0),
+            ("k7", 3 * plane_b + 9 * bin_b, 0),
+            ("k8", 10 * plane_b + 13 * bin_b + 10 * row_b
+             + 36 * row_b // geom.capacity, 0)):
+        bound, by = bound_of(nbytes, flops)
+        recs[k].update(ms=times[k][0], plain_ms=times[k][2], bound_ms=bound,
+                       bound_by=by, ms_single_same_rows=times[k][1])
+    whole_ms = {"k1": kernels["grid_step"]["ms"], "k2": kernels["rebin_axes"]["ms"],
+                "k7": kernels["rebin_counts"]["ms"], "k8": kernels["rebin_shuffle"]["ms"]}
+    log(f"  times on shard 1 of {P} ({rl} x {geom.cols_pad} x {geom.capacity}; "
+        f"ms/call; {smi}): " + "; ".join(
+            f"{k.upper()} shard form {t[0]:.4f}, single-device call on the same rows "
+            f"{t[1]:.4f}, whole slab / {P} {whole_ms[k] / P:.4f}, twin {t[2]:.3f}, "
+            f"bound {recs[k]['bound_ms']:.4f}" for k, t in times.items()))
+    del slab11, calls
+    torch.cuda.empty_cache()
+    phase_line("10a", "shard forms agree with their twins and the single device", t0)
+
+    # ---- (b) the main path on sharded_grid at full width -------------------
+    t0 = time.perf_counter()
+    engine = get_engine("sharded_grid", cfg, device=dev, shards=P)
+    # the single-device grid, rows padded to P strips of a multiple of 8
+    # (at full width 1664 = 4 x 416: no padding)
+    if (engine.geom.rows, engine.geom.cols_pad, engine.geom.capacity) != (
+            geom.rows, geom.cols_pad, geom.capacity):
+        raise AssertionError(f"sharded geometry {engine.geom} differs from {geom}")
+    for k in ("k1", "k2"):
+        recs[k]["wrapper"].launches = 0
+    result, seconds = timed_run(engine, state, STEPS_MAIN, 0)
+    for k in ("k1", "k2"):
+        recs[k]["launches"] = recs[k]["wrapper"].launches
+    engine.check(result)
+    check_final(engine.full_slab(result.carry), result.state.pos, N_MAIN, 2, cfg.size)
+    warm = cfg.rebin_every
+    want = (P * (STEPS_MAIN + warm), P * (STEPS_MAIN // CADENCE_MAIN + 1))
+    if (recs["k1"]["launches"], recs["k2"]["launches"]) != want:
+        raise AssertionError(f"launches {recs['k1']['launches']}, "
+                             f"{recs['k2']['launches']}, expected {want}")
+    final_frame_check("the sharded main path", result.state.pos, cfg)
+    ref_state, ref_seconds = ref3
+    assert_equal("sharded main path pos vs phase 3", result.state.pos, ref_state.pos)
+    assert_equal("sharded main path vel vs phase 3", result.state.vel, ref_state.vel)
+    m = result.monitors
+    log(f"  sharded_grid ({P} shards of {engine.rows_local} rows, LocalMesh) n={N_MAIN} "
+        f"steps={STEPS_MAIN} rebin_every={CADENCE_MAIN} axes: {seconds:.4f} s = "
+        f"{N_MAIN * STEPS_MAIN / seconds / 1e6:.2f} M particle-steps/s; cuda "
+        f"(phase 3, same process): {ref_seconds:.4f} s; sharded / single = "
+        f"{seconds / ref_seconds:.4f} ({smi})")
+    log(f"  final state bitwise equal to phase 3's (positions and velocities); "
+        f"monitors: max_bin_count {int(m.max_bin_count)} dropped "
+        f"{int(m.migrate_dropped)} max_speed {float(m.max_speed):.4f} deferred "
+        f"{int(m.deferred)}")
+    log(f"  launches: grid_step {recs['k1']['launches']}, rebin_axes "
+        f"{recs['k2']['launches']} ({P} shards x the schedule {STEPS_MAIN} + {warm} "
+        f"warm-up and {STEPS_MAIN // CADENCE_MAIN} + 1 warm-up)")
+    log(f"  every pid 0..{N_MAIN - 1} in exactly one slot")
+    carry = result.carry
+    del result
+    _, win = profile_steps(engine, carry, STEPS_MAIN + 1, 2 * CADENCE_MAIN)
+    log(f"  torch.profiler, sharded main path, steps {win.steps.start}-"
+        f"{win.steps.stop - 1} ({smi}):")
+    for line in win.table(top=14).splitlines():
+        log(f"    {line}")
+    del carry, engine
+    torch.cuda.empty_cache()
+    phase_line("10b", "sharded main path at full width clean", t0)
+
+    # ---- (c) dirs9 on sharded_grid ----------------------------------------
+    t0 = time.perf_counter()
+    cfg9 = cfg.with_(grid_rebin_mode="dirs9")
+    ref9, ref9_seconds = timed_run(get_engine("cuda", cfg9, device=dev), state,
+                                   STEPS_DIRS9_SHARDED, 0)
+    engine = get_engine("sharded_grid", cfg9, device=dev, shards=P)
+    path = ("k1", "k7", "k8")
+    for k in path:
+        recs[k]["wrapper"].launches = 0
+    result, seconds = timed_run(engine, state, STEPS_DIRS9_SHARDED, 0)
+    launches = [recs[k]["wrapper"].launches for k in path]
+    for k in ("k7", "k8"):
+        recs[k]["launches"] = recs[k]["wrapper"].launches
+    engine.check(result)
+    check_final(engine.full_slab(result.carry), result.state.pos, N_MAIN, 2, cfg.size)
+    nreb = STEPS_DIRS9_SHARDED // CADENCE_MAIN + 1
+    want = [P * (STEPS_DIRS9_SHARDED + warm), P * nreb, P * nreb]
+    if launches != want:
+        raise AssertionError(f"dirs9 launches {launches}, expected {want}")
+    final_frame_check("the sharded dirs9 run", result.state.pos, cfg)
+    assert_equal("sharded dirs9 pos vs cuda", result.state.pos, ref9.state.pos)
+    assert_equal("sharded dirs9 vel vs cuda", result.state.vel, ref9.state.vel)
+    if [float(v) for v in result.monitors] != [float(v) for v in ref9.monitors]:
+        raise AssertionError(f"dirs9 monitors {result.monitors} vs {ref9.monitors}")
+    m = result.monitors
+    log(f"  sharded_grid dirs9 ({P} shards) n={N_MAIN} steps={STEPS_DIRS9_SHARDED}: "
+        f"{seconds:.4f} s; cuda dirs9 (same process): {ref9_seconds:.4f} s; final "
+        f"state and monitors bitwise equal to the cuda run's (max_bin_count "
+        f"{int(m.max_bin_count)} dropped {int(m.migrate_dropped)} deferred "
+        f"{int(m.deferred)}); launches grid_step {launches[0]}, rebin_counts "
+        f"{launches[1]}, rebin_shuffle {launches[2]} ({smi})")
+    del result, ref9, engine
+    torch.cuda.empty_cache()
+    phase_line("10c", "sharded dirs9 clean", t0)
+
+
 def main() -> int:
     import torch
 
@@ -812,6 +1091,15 @@ def main() -> int:
                               "pallas_rebin.py:99", rebin_counts_cuda),
         "rebin_shuffle": entry("rebin_shuffle", "rebin_dirs9.cu",
                                "pallas_rebin.py:119", rebin_shuffle_cuda),
+        # the shard forms (row offset + ghost rows) of the same kernels
+        "grid_step_shard": entry("grid_step_shard", "grid_step.cu",
+                                 "pallas_grid.py:524", grid_step_cuda),
+        "rebin_axes_shard": entry("rebin_axes_shard", "rebin_axes.cu",
+                                  "pallas_rebin.py:604", rebin_axes_call_cuda),
+        "rebin_counts_shard": entry("rebin_counts_shard", "rebin_dirs9.cu",
+                                    "pallas_rebin.py:242", rebin_counts_cuda),
+        "rebin_shuffle_shard": entry("rebin_shuffle_shard", "rebin_dirs9.cu",
+                                     "pallas_rebin.py:267", rebin_shuffle_cuda),
     }
 
     # ---- phase 0: the card and the build ---------------------------------
@@ -972,11 +1260,14 @@ def main() -> int:
     del slab_f, a1f
     phase_line("3", "full-width main path clean", t0)
 
+    ref3 = (result.state, seconds)
     del result, engine
     torch.cuda.empty_cache()
     phase_3d(kernels, state, cfg, smi)
     torch.cuda.empty_cache()
     phase_2d_rest(kernels, state, cfg, seconds, smi)
+    torch.cuda.empty_cache()
+    phase_sharded(kernels, state, cfg, ref3, smi)
 
     out = [{k: v for k, v in rec.items() if k != "wrapper"}
            for rec in kernels.values()]

@@ -134,11 +134,11 @@ def kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, types in (
-            (lib.ppsim_grid_step, [P] * 9 + [I] * 10 + [F] * 10 + [P]),
+            (lib.ppsim_grid_step, [P] * 13 + [I] * 11 + [F] * 10 + [P]),
             (lib.ppsim_grid_force, [P] * 4 + [I] * 10 + [F] * 8 + [P]),
-            (lib.ppsim_rebin_axes, [P] * 11 + [I] * 12 + [F] * 2 + [P]),
-            (lib.ppsim_rebin_counts, [P] * 4 + [I] * 6 + [F] + [P]),
-            (lib.ppsim_rebin_shuffle, [P] * 12 + [I] * 12 + [F] * 2 + [P]),
+            (lib.ppsim_rebin_axes, [P] * 21 + [I] * 13 + [F] * 2 + [P]),
+            (lib.ppsim_rebin_counts, [P] * 4 + [I] * 7 + [F] + [P]),
+            (lib.ppsim_rebin_shuffle, [P] * 24 + [I] * 13 + [F] * 2 + [P]),
             (lib.ppsim_grid3_step, [P] * 13 + [I] * 14 + [F] * 12 + [P]),
             (lib.ppsim_rebin3_inplane, [P] * 15 + [I] * 14 + [F] * 5 + [P]),
             (lib.ppsim_rebin3_ypass, [P] * 16 + [I] * 9 + [F] * 4 + [P])):

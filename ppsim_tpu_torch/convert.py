@@ -18,7 +18,7 @@ from ppsim_tpu_torch.ops.grid_ops import SlabState
 from ppsim_tpu_torch.state import ParticleState, make_state
 
 __all__ = ["config_from_dict", "particle_state_from_numpy", "slab_state_from_numpy",
-           "slab3_state_from_numpy"]
+           "slab3_state_from_numpy", "shards_from_numpy", "shards_to_numpy"]
 
 
 def config_from_dict(fields: dict) -> SimConfig:
@@ -49,3 +49,20 @@ def slab3_state_from_numpy(xl, yl, zl, vx, vy, vz, pid, device="cpu") -> Slab3St
     f = lambda a, dt: torch.tensor(np.array(a, dt), device=device)  # noqa: E731
     return Slab3State(*(f(a, np.float32) for a in (xl, yl, zl, vx, vy, vz)),
                       f(pid, np.int32))
+
+
+def shards_from_numpy(xl, yl, vx, vy, pid, shards: int, device="cpu"):
+    """A JAX ``SlabState`` (as numpy, (cap, P * R, C)) cut into the port's
+    list of ``shards`` row strips of R rows, each a SlabState of its own
+    tensors (the sharded engine's carry)."""
+    if np.shape(pid)[1] % shards:
+        raise ValueError(f"{np.shape(pid)[1]} rows do not split into {shards} shards")
+    parts = [np.split(np.asarray(a), shards, axis=1) for a in (xl, yl, vx, vy, pid)]
+    return [slab_state_from_numpy(*fs, device=device) for fs in zip(*parts)]
+
+
+def shards_to_numpy(shards):
+    """The port's shard list back to the five (cap, P * R, C) numpy arrays
+    (xl, yl, vx, vy, pid) of a JAX ``SlabState``."""
+    return tuple(np.concatenate([s[k].cpu().numpy() for s in shards], axis=1)
+                 for k in range(5))

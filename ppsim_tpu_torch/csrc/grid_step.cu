@@ -60,6 +60,17 @@
 // The strip width, segment length, block size and shared-memory bytes come
 // from the Python plan (cuda_grid.step_plan), which the entry points check.
 //
+// Shards (the sharded engine, ops/cuda_grid.py). A shard's planes are rows
+// row0 .. row0 + R - 1 of the global slab; row0 enters the wall fold, and
+// the neighbouring shards' boundary rows arrive as ghost planes (cap, 1, C):
+// the ring takes row -1 and row R from them instead of the BIG fill, and
+// compacts them as it compacts its own rows. The TPU kernel evaluates the
+// ghost row's pairs self-side only because of its Newton-3 row spill
+// (pallas_grid.py:488-511); here every particle sums its own force, so a
+// ghost row is only read, like any neighbour row. The shard inputs are a
+// template parameter (SHARD): the single-device call launches the instance
+// without them, which compiles to the kernel as it was before them.
+//
 // Force law. The pair coefficient comes from pair_coef.cuh, a template
 // parameter: the repulsive law (the default) or truncated Lennard-Jones.
 //
@@ -105,16 +116,23 @@ struct Tile2 {
   int w, seg;  // own columns of a strip; rows a block walks
 };
 
+// A shard's ghost rows: x and y of row -1 (top) and of row R (bottom), each
+// [cap][C]; null pointers where the fill applies.
+struct Ghost2 {
+  const float *tx, *ty, *bx, *by;
+  int row0;  // global row of the planes' row 0
+};
+
 // MOVE: K1 (outputs x, y, vx, vy and the speed plane); else K6 (outputs
-// ax, ay in o0, o1).
-template <Law LAW, bool MOVE>
+// ax, ay in o0, o1). SHARD: K1 with a row offset and ghost rows.
+template <Law LAW, bool MOVE, bool SHARD>
 __global__ void __launch_bounds__(ppsim::kTileThreads)
 grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
                  const float* __restrict__ vx, const float* __restrict__ vy,
                  float* __restrict__ o0, float* __restrict__ o1,
                  float* __restrict__ o2, float* __restrict__ o3,
-                 float* __restrict__ sp, Geo2 g, Tile2 t, PairParams pp,
-                 float dt, float L) {
+                 float* __restrict__ sp, Geo2 g, Tile2 t, Ghost2 gh,
+                 PairParams pp, float dt, float L) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int HB = t.w + 2, OB = t.w;
   const TileLayout lay = ppsim::tile_layout(2, g.cap, HB, OB);
@@ -143,19 +161,28 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
   const bool interior = h >= 1 && h <= t.w;
   const bool in_array = gc >= 0 && gc < g.C;
 
+  // rows held: the planes' own, and the ghost rows -1 and R where given
+  auto held = [&](int rr) {
+    return (rr >= 0 && rr < g.R) ||
+           (SHARD && ((rr == -1 && gh.tx) || (rr == g.R && gh.bx)));
+  };
   auto issue = [&](int rr) {
-    if (rr < 0 || rr >= g.R || part >= parts || !in_array) return;
+    if (!held(rr) || part >= parts || !in_array) return;
     float* c = reinterpret_cast<float*>(buf(rr));
-    const int64_t gb = (int64_t)rr * g.C + gc;
+    const bool own_row = !SHARD || (rr >= 0 && rr < g.R);
+    const float* px = own_row ? xl : (rr < 0 ? gh.tx : gh.bx);
+    const float* py = own_row ? yl : (rr < 0 ? gh.ty : gh.by);
+    const int64_t stride = own_row ? plane : g.C;
+    const int64_t gb = own_row ? (int64_t)rr * g.C + gc : gc;
     for (int s = part; s < cap; s += parts) {
-      ppsim::cp_async4(c + s * HB + h, xl + s * plane + gb);
-      ppsim::cp_async4(c + (cap + s) * HB + h, yl + s * plane + gb);
+      ppsim::cp_async4(c + s * HB + h, px + s * stride + gb);
+      ppsim::cp_async4(c + (cap + s) * HB + h, py + s * stride + gb);
     }
   };
   auto compact = [&](int rr) {
     if (tid >= HB) return;
     unsigned char* b = buf(rr);
-    const bool loaded = rr >= 0 && rr < g.R && in_array;
+    const bool loaded = held(rr) && in_array;
     int k = 0;
     uint32_t dead = 0;
     if (loaded)
@@ -235,7 +262,7 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
     __syncthreads();
     const float* cc = reinterpret_cast<const float*>(cur);
 
-    const float row_off = __fmul_rn((float)r, g.bs);
+    const float row_off = __fmul_rn((float)((SHARD ? gh.row0 : 0) + r), g.bs);
     for (int p = tid; p < total; p += blockDim.x) {
       const int e = plist[p];
       const int ob = e >> 5, k = e & 31;
@@ -326,9 +353,9 @@ bool plan_ok(int cap, int R, int C, int w, int seg, int threads, int blocks,
 template <bool MOVE>
 int launch(int law, const float* xl, const float* yl, const float* vx,
            const float* vy, float* o0, float* o1, float* o2, float* o3,
-           float* sp, const Geo2& g, const Tile2& t, int threads, int blocks,
-           int smem, const PairParams& pp, float dt, float L,
-           cudaStream_t s) {
+           float* sp, const Geo2& g, const Tile2& t, const Ghost2& gh,
+           int threads, int blocks, int smem, const PairParams& pp, float dt,
+           float L, cudaStream_t s) {
   auto go = [&](auto kernel) {
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
@@ -336,12 +363,21 @@ int launch(int law, const float* xl, const float* yl, const float* vx,
       if (err != cudaSuccess) return (int)err;
     }
     kernel<<<blocks, threads, smem, s>>>(xl, yl, vx, vy, o0, o1, o2, o3, sp,
-                                         g, t, pp, dt, L);
+                                         g, t, gh, pp, dt, L);
     return (int)cudaGetLastError();
   };
+  const bool shard = gh.row0 != 0 || gh.tx || gh.bx;
+  if constexpr (MOVE) {
+    if (shard) {
+      if (law == (int)Law::kRepulsive)
+        return go(grid_tile_kernel<Law::kRepulsive, true, true>);
+      if (law == (int)Law::kLJ) return go(grid_tile_kernel<Law::kLJ, true, true>);
+      return (int)cudaErrorInvalidValue;
+    }
+  }
   if (law == (int)Law::kRepulsive)
-    return go(grid_tile_kernel<Law::kRepulsive, MOVE>);
-  if (law == (int)Law::kLJ) return go(grid_tile_kernel<Law::kLJ, MOVE>);
+    return go(grid_tile_kernel<Law::kRepulsive, MOVE, false>);
+  if (law == (int)Law::kLJ) return go(grid_tile_kernel<Law::kLJ, MOVE, false>);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -349,26 +385,33 @@ int launch(int law, const float* xl, const float* yl, const float* vx,
 
 extern "C" {
 
-// law 0 = repulsive, 1 = Lennard-Jones (pair_coef.cuh). The launch plan
+// law 0 = repulsive, 1 = Lennard-Jones (pair_coef.cuh). A shard passes its
+// global row offset row0 and its ghost rows (gtx, gty: row -1; gbx, gby:
+// row R; each [cap][C]); null ghosts take the BIG fill. The launch plan
 // (strip width w, segment length, threads, blocks, shared bytes) must be
 // the one cuda_grid.step_plan gives for this shape; anything else returns
 // cudaErrorInvalidValue. Returns cudaGetLastError() after the launch
 // (0 = launched). cap <= 32.
 int ppsim_grid_step(const float* xl, const float* yl, const float* vx,
-                    const float* vy, float* xo, float* yo, float* vxo,
-                    float* vyo, float* sp, int device, int cap, int R, int C,
-                    int law, int w, int seg, int threads, int blocks,
+                    const float* vy, const float* gtx, const float* gty,
+                    const float* gbx, const float* gby, float* xo, float* yo,
+                    float* vxo, float* vyo, float* sp, int device, int cap,
+                    int R, int C, int row0, int law, int w, int seg,
+                    int threads, int blocks,
                     int smem, float bs, float c2, float cutoff, float mr2,
                     float inv_mass, float sig2, float lj_k, float mass,
                     float dt, float L, void* stream) {
   if (!plan_ok(cap, R, C, w, seg, threads, blocks, smem))
     return (int)cudaErrorInvalidValue;
+  if ((gtx == nullptr) != (gty == nullptr) || (gbx == nullptr) != (gby == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
   return launch<true>(law, xl, yl, vx, vy, xo, yo, vxo, vyo, sp,
-                      Geo2{cap, R, C, bs}, Tile2{w, seg}, threads, blocks,
-                      smem, pp, dt, L, (cudaStream_t)stream);
+                      Geo2{cap, R, C, bs}, Tile2{w, seg},
+                      Ghost2{gtx, gty, gbx, gby, row0}, threads, blocks, smem,
+                      pp, dt, L, (cudaStream_t)stream);
 }
 
 // K6: accelerations (ax, ay) of the slab positions (xl, yl); arguments as
@@ -385,7 +428,8 @@ int ppsim_grid_force(const float* xl, const float* yl, float* ax, float* ay,
   const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
   return launch<false>(law, xl, yl, nullptr, nullptr, ax, ay, nullptr,
                        nullptr, nullptr, Geo2{cap, R, C, bs}, Tile2{w, seg},
-                       threads, blocks, smem, pp, 0.0f, 0.0f,
+                       Ghost2{nullptr, nullptr, nullptr, nullptr, 0}, threads,
+                       blocks, smem, pp, 0.0f, 0.0f,
                        (cudaStream_t)stream);
 }
 

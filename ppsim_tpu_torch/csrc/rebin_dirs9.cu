@@ -63,6 +63,23 @@
 // of grid_ops.slab_dirs). So the output equals the plain twin bitwise on all
 // planes.
 //
+// Shards (the sharded engine). A shard's rows are global rows row0 ..
+// row0 + R - 1: row0 enters every use of a row index as a global one (K7's
+// and K8's clamp at the physical edge, K8's resid). K8's rings read field
+// rows r-1..r+1 and count rows r-2..r+2, so a shard hands it the
+// neighbours' field row above and below (1 row of each plane) and their
+// count rows (2 above, 2 below, of all nine planes), which the rings take
+// in place of the empty rows outside the array: the exchange of the JAX
+// package's sharded engine (sharded_grid.py:270-284). Both shards of a
+// boundary then take the same decisions from the same data, so a transfer
+// across it needs no handshake. K8 is a template on SHARD: the
+// single-device call launches the instance without the shard inputs (56
+// registers on sm_90a; 58 before the shard form), 3 blocks an SM as before.
+// The shard instance (64 registers) keeps the ghosts' pointers in shared
+// memory and reads them only at a ghost row: taken as parameters, the
+// compiler held them in registers across the walk (108), which left room
+// for 2 blocks an SM, not 3.
+//
 // The strip width, segment, block size and shared bytes come from the Python
 // plan (cuda_rebin.shuffle_plan, whose shuffle_smem repeats shuffle_layout);
 // the entry point refuses any other plan.
@@ -99,7 +116,8 @@ __device__ __forceinline__ int dcode(int dr, int dc) { return (dr + 1) * 3 + (dc
 __global__ void __launch_bounds__(128)
 rebin_counts_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const int* __restrict__ pid, int* __restrict__ counts,
-                    int cap, int R, int C, int rows, int cols, float inv) {
+                    int cap, int R, int C, int row0, int rows, int cols,
+                    float inv) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y;
   if (c >= C) return;
@@ -111,7 +129,7 @@ rebin_counts_kernel(const float* __restrict__ x, const float* __restrict__ y,
   for (int s = 0; s < cap; ++s) {
     const int64_t i = s * plane + b;
     if (pid[i] < 0) continue;
-    const int d = dcode(dir1(x[i], r, rows, inv), dir1(y[i], c, cols, inv));
+    const int d = dcode(dir1(x[i], row0 + r, rows, inv), dir1(y[i], c, cols, inv));
 #pragma unroll
     for (int k = 0; k < 9; ++k) n[k] += (k == 4 || k == d) ? 1 : 0;
   }
@@ -162,6 +180,15 @@ struct Geo9 {
   int rows, cols;   // physical bins
   int evac;
   float bs, inv;    // bin side, float32(1 / bin side)
+  int row0;         // global row of the array's row 0
+};
+
+// A shard's ghost rows: the field rows -1 (ft) and R (fb), [cap][C] a
+// plane, and the count rows -2, -1 (ct) and R, R+1 (cb), [9][2][C]. Null
+// pids (counts): none, the rows outside the array hold nothing.
+struct Ghost9 {
+  SlabC ft, fb;
+  const int *ct, *cb;
 };
 
 // Threads that take a halo bin's masks, its slots split among them.
@@ -176,10 +203,11 @@ constexpr int kShuffleBlocksPerSM = 3;
 // Shared memory an H100 SM can hand to blocks, and what each block reserves.
 constexpr int kSmemPerSM = 228 * 1024, kSmemPerBlock = 1024;
 
+template <bool SHARD>
 __global__ void __launch_bounds__(ppsim::kTileThreads)
 rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
                      const Slab out, int* __restrict__ mon_out, const Geo9 g,
-                     const int T, const int seg) {
+                     const int T, const int seg, const Ghost9 gh) {
   extern __shared__ __align__(16) unsigned char smem[];
   const ShuffleLayout lay = shuffle_layout(g.cap, T);
   const int cap = g.cap, HF = lay.hf, HC = lay.hc, tid = threadIdx.x;
@@ -224,29 +252,65 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
   const int d = k8 + (k8 >= 4 ? 1 : 0);
   const int dr = d / 3 - 1, dc = d % 3 - 1;
 
+  // (shard) the ghosts' pointers: field rows -1 then R (x, y, vx, vy, pid
+  // each), count rows -2..-1 and R..R+1
+  __shared__ const void* gptr[SHARD ? 12 : 1];
+  if (SHARD) {
+    if (tid == 0) {
+      const void* p[12] = {gh.ft.x, gh.ft.y, gh.ft.vx, gh.ft.vy, gh.ft.pid,
+                           gh.fb.x, gh.fb.y, gh.fb.vx, gh.fb.vy, gh.fb.pid,
+                           gh.ct, gh.cb};
+      for (int i = 0; i < 12; ++i) gptr[i] = p[i];
+    }
+    __syncthreads();
+  }
+  // field rows held: the array's own and, in a shard, rows -1 and R
+  auto fields_held = [&](int r) {
+    return (r >= 0 && r < g.R) ||
+           (SHARD && ((r == -1 && gptr[4]) || (r == g.R && gptr[9])));
+  };
+  // the global row of local row r
+  auto grow = [&](int r) { return (SHARD ? g.row0 : 0) + r; };
   auto issue_fields = [&](int r) {
-    if (r < 0 || r >= g.R || part >= parts || !col_in) return;
+    if (!fields_held(r) || part >= parts || !col_in) return;
     unsigned char* b = fbuf(r);
-    const int64_t gb = (int64_t)r * g.C + gc;
+    const bool own_row = !SHARD || (r >= 0 && r < g.R);
+    const void* const* gp = gptr + (SHARD && r >= 0 ? 5 : 0);
+    const float* px = own_row ? in.x : static_cast<const float*>(gp[0]);
+    const float* py = own_row ? in.y : static_cast<const float*>(gp[1]);
+    const float* pvx = own_row ? in.vx : static_cast<const float*>(gp[2]);
+    const float* pvy = own_row ? in.vy : static_cast<const float*>(gp[3]);
+    const int* pp = own_row ? in.pid : static_cast<const int*>(gp[4]);
+    const int64_t stride = own_row ? plane : g.C;
+    const int64_t gb = own_row ? (int64_t)r * g.C + gc : gc;
     for (int s = part; s < cap; s += parts) {
-      const int64_t i = s * plane + gb;
+      const int64_t i = s * stride + gb;
       const int j = s * HF + h;
-      cp_async4(fplane(b, 0) + j, in.x + i);
-      cp_async4(fplane(b, 1) + j, in.y + i);
-      cp_async4(fplane(b, 2) + j, in.vx + i);
-      cp_async4(fplane(b, 3) + j, in.vy + i);
-      cp_async4(fpid(b) + j, in.pid + i);
+      cp_async4(fplane(b, 0) + j, px + i);
+      cp_async4(fplane(b, 1) + j, py + i);
+      cp_async4(fplane(b, 2) + j, pvx + i);
+      cp_async4(fplane(b, 3) + j, pvy + i);
+      cp_async4(fpid(b) + j, pp + i);
     }
   };
   // count row r over the strip and 2 bins each side; 0 outside the array
+  // and its ghost rows
   auto issue_counts = [&](int r) {
     int* b = cbuf(r);
-    const bool row_in = r >= 0 && r < g.R;
+    bool row_in = r >= 0 && r < g.R;
+    const int* src = counts;
+    int64_t kstride = plane, rbase = (int64_t)r * g.C;
+    if (SHARD && !row_in) {  // a ghost row: [9][2][C]
+      src = static_cast<const int*>(gptr[r < 0 ? 10 : 11]);
+      row_in = r >= -2 && r < g.R + 2 && src;
+      kstride = 2 * g.C;
+      rbase = (int64_t)(r < 0 ? r + 2 : r - g.R) * g.C;
+    }
     for (int e = tid; e < 9 * HC; e += blockDim.x) {
       const int k = e / HC, hh = e - k * HC;
       const int cc = s0 - 2 + hh;
       if (row_in && cc >= 0 && cc < g.C)
-        cp_async4(b + e, counts + k * plane + (int64_t)r * g.C + cc);
+        cp_async4(b + e, src + k * kstride + rbase + cc);
       else
         b[e] = 0;
     }
@@ -263,7 +327,7 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
     uint32_t mv[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) mv[k] = 0;
-    if (hb < HF && r >= 0 && r < g.R && cb >= 0 && cb < g.C) {
+    if (hb < HF && fields_held(r) && cb >= 0 && cb < g.C) {
       const float* xs = fplane(b, 0);
       const float* ys = fplane(b, 1);
       const int* pid = fpid(b);
@@ -276,7 +340,7 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
         alive |= bit;
         const int rx = raw_dir(x, g.inv), ry = raw_dir(y, g.inv);
         far += (abs(rx) > 1 || abs(ry) > 1) ? 1u : 0u;
-        const int dd = dcode(clamp_dir(rx, r, g.rows), clamp_dir(ry, cb, g.cols));
+        const int dd = dcode(clamp_dir(rx, grow(r), g.rows), clamp_dir(ry, cb, g.cols));
 #pragma unroll
         for (int k = 0; k < 9; ++k)
           if (k == dd && k != 4) mv[k] |= bit;
@@ -418,7 +482,7 @@ rebin_shuffle_kernel(const SlabC in, const int* __restrict__ counts,
       out.vx[i] = fplane(b, 2)[j];
       out.vy[i] = fplane(b, 3)[j];
       out.pid[i] = pid;
-      if (pid >= 0 && (dir1(x, r, g.rows, g.inv) != 0 ||
+      if (pid >= 0 && (dir1(x, grow(r), g.rows, g.inv) != 0 ||
                        dir1(y, s0 + oo, g.cols, g.inv) != 0))
         atomicAdd(&mon[3 * T + oo], 1);
     }
@@ -447,53 +511,65 @@ bool shuffle_plan_ok(const Geo9& g, int T, int seg, int threads, int blocks,
 
 extern "C" {
 
-// K7: counts (9, R, C) int32 of the slab (x, y, pid). Returns
-// cudaGetLastError() after the launch (0 = launched). cap <= 32.
+// K7: counts (9, R, C) int32 of the slab (x, y, pid), whose row 0 is global
+// row row0. Returns cudaGetLastError() after the launch (0 = launched).
+// cap <= 32.
 int ppsim_rebin_counts(const float* x, const float* y, const int* pid,
                        int* counts, int device, int cap, int R, int C,
-                       int rows, int cols, float inv, void* stream) {
+                       int row0, int rows, int cols, float inv, void* stream) {
   if (cap < 1 || cap > 32) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(128);
   const dim3 grid((C + block.x - 1) / block.x, R);
   rebin_counts_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      x, y, pid, counts, cap, R, C, rows, cols, inv);
+      x, y, pid, counts, cap, R, C, row0, rows, cols, inv);
   return (int)cudaGetLastError();
 }
 
 // K8: the pre-rebin slab in (x, y, vx, vy, pid) and its K7 counts -> the
 // rebinned slab out and the monitor planes mon (4, R, C) = [far_pre,
-// alive_pre, alive_post, resid]. The launch plan (strip width, segment,
+// alive_pre, alive_post, resid]. A shard passes its global row offset row0
+// and its ghost rows: t* field row -1 and b* field row R, [cap][C] a plane;
+// ct count rows -2, -1 and cb count rows R, R+1, [9][2][C]. Null ghost
+// pointers (all or none): the rows outside hold nothing. The launch plan (strip width, segment,
 // threads, blocks, shared bytes) must be the one cuda_rebin.shuffle_plan
 // gives for this shape; anything else returns cudaErrorInvalidValue.
 // Returns cudaGetLastError() after the launch (0 = launched). cap <= 32.
 int ppsim_rebin_shuffle(const float* x, const float* y, const float* vx,
                         const float* vy, const int* pid, const int* counts,
+                        const float* tx, const float* ty, const float* tvx,
+                        const float* tvy, const int* tpid, const float* bx,
+                        const float* by, const float* bvx, const float* bvy,
+                        const int* bpid, const int* ct, const int* cb,
                         float* ox, float* oy, float* ovx, float* ovy,
                         int* opid, int* mon, int device, int cap, int R, int C,
-                        int rows, int cols, int evac, int tile, int seg,
-                        int threads, int blocks, int smem, float bs, float inv,
-                        void* stream) {
-  const Geo9 g{cap, R, C, rows, cols, evac, bs, inv};
+                        int row0, int rows, int cols, int evac, int tile,
+                        int seg, int threads, int blocks, int smem, float bs,
+                        float inv, void* stream) {
+  const Geo9 g{cap, R, C, rows, cols, evac, bs, inv, row0};
   if (!shuffle_plan_ok(g, tile, seg, threads, blocks, smem))
     return (int)cudaErrorInvalidValue;
+  const bool any = tpid || bpid || ct || cb, all = tpid && bpid && ct && cb;
+  if (any && !all) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  auto kernel = (all || row0 != 0) ? rebin_shuffle_kernel<true>
+                                   : rebin_shuffle_kernel<false>;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(rebin_shuffle_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
     if (err != cudaSuccess) return (int)err;
   }
   // the carveout, in percent, rounded up to a size the SM supports
   const int64_t want = (int64_t)kShuffleBlocksPerSM * (smem + kSmemPerBlock);
   err = cudaFuncSetAttribute(
-      rebin_shuffle_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
       (int)std::min<int64_t>(100, (want * 100 + kSmemPerSM - 1) / kSmemPerSM));
   if (err != cudaSuccess) return (int)err;
-  rebin_shuffle_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       SlabC{x, y, vx, vy, pid}, counts, Slab{ox, oy, ovx, ovy, opid}, mon, g,
-      tile, seg);
+      tile, seg, Ghost9{{tx, ty, tvx, tvy, tpid}, {bx, by, bvx, bvy, bpid}, ct, cb});
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,18 @@
 // first, the +1 stream from the -1 movers' count on. A slot nobody touches
 // keeps its input values, as in the twins.
 //
+// Shards (2D only: K2 in the sharded engine). A shard's rows are global rows
+// w0 .. w0 + W - 1: w0 enters every use of a row index as a global one (the
+// clamp at the physical edge, the count planes). The walk of row w reads
+// masks at rows w-1..w+2 and fields at w-1..w+1, so at a shard's first and
+// last segment the ring takes row -1 from the top ghosts (every plane) and
+// rows W and W+1 from the bottom ghosts (row W of every plane; row W+1 of
+// the walked coordinate and pid only, the masks its -1 movers need): the
+// exchange of the JAX package's sharded engine (sharded_grid.py:230-253).
+// Without ghosts the rows outside [0, W) hold no particles, as before. The
+// shard inputs are a template parameter (SHARD): an instance without them
+// compiles to the walk as it was before them.
+//
 // Count planes. 2D: [far_pre, alive_pre, alive_post, resid]; 3D: [m-, alive,
 // m+, far_pre, alive_pre], the y pass's inputs of the xz-settled slab (K5
 // reads them) and the pre-rebin monitors.
@@ -115,6 +127,15 @@ struct RebinGeo {
   int evac;
   float bsw, bss;  // bin sides along the walked and the strip axis
   float inv[3];    // float32(1 / bin side) of coordinate fields 0..NC-1
+  int w0;          // global index of walked row 0 (a shard's row offset)
+};
+
+// A shard's ghost rows (2D): top, row -1 of every plane, [cap][S] each;
+// bot, rows W and W+1: [cap][2][S] for the walked coordinate (plane 0) and
+// pid, [cap][S] (row W only) for the others. Null pids: no ghosts.
+template <int NF>
+struct RowGhosts {
+  PlanesC<NF> top, bot;
 };
 
 // Offset, along its axis, of a source code's bin.
@@ -150,12 +171,13 @@ __device__ __forceinline__ PassMoves moves_of(const Masks& mm, const Masks& m0,
                     cap - __popc(mp.alive), __popc(m2.neg), evac);
 }
 
-template <int NF>
+template <int NF, bool SHARD = false>
 __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
                                            const Planes<NF> out,
                                            int* __restrict__ cnt,
                                            const RebinGeo g, const int T,
-                                           const int seg) {
+                                           const int seg,
+                                           const RowGhosts<NF>& gh = {}) {
   constexpr int NC = (NF - 1) / 2;  // coordinate fields
   constexpr int FS = NC - 1;        // the strip axis's coordinate field
   constexpr bool THREE = NF == 7;
@@ -196,16 +218,46 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
   const int gs = s0 - 1 + h;
   const bool in_array = gs >= 0 && gs < g.S;
 
+  // rows held: the array's own, and the ghost rows -1, W and W+1 if given
+  auto held = [&](int w) {
+    return (w >= 0 && w < g.W) ||
+           (SHARD && ((w == -1 && gh.top.pid) ||
+                      ((w == g.W || w == g.W + 1) && gh.bot.pid)));
+  };
+  // the walked axis's global index of local row w
+  auto gw = [&](int w) { return (SHARD ? g.w0 : 0) + w; };
   auto issue = [&](int w) {
-    if (w < 0 || w >= g.W || part >= parts || !in_array) return;
+    if (!held(w) || part >= parts || !in_array) return;
     unsigned char* b = buf(w);
-    const int64_t gb = ybase + (int64_t)w * g.S + gs;
-    for (int s = part; s < cap; s += parts) {
-      const int64_t i = s * plane + gb;
+    if (!SHARD || (w >= 0 && w < g.W)) {
+      const int64_t gb = ybase + (int64_t)w * g.S + gs;
+      for (int s = part; s < cap; s += parts) {
+        const int64_t i = s * plane + gb;
 #pragma unroll
-      for (int k = 0; k < NF - 1; ++k)
-        cp_async4(plane_of(b, k) + s * HB + h, in.f[k] + i);
-      cp_async4(pid_of(b) + s * HB + h, in.pid + i);
+        for (int k = 0; k < NF - 1; ++k)
+          cp_async4(plane_of(b, k) + s * HB + h, in.f[k] + i);
+        cp_async4(pid_of(b) + s * HB + h, in.pid + i);
+      }
+      return;
+    }
+    // a ghost row; row W+1 carries no plane but the walked coordinate and
+    // pid, and its other planes read 0 (only its -1 movers are counted)
+    // (pointers picked one by one: a struct picked by reference would be
+    // copied to local memory)
+    const bool top = w < 0;
+    const int j = top ? 0 : w - g.W;
+    for (int s = part; s < cap; s += parts) {
+      const int64_t i1 = (int64_t)s * g.S + gs;
+      const int64_t i2 = ((int64_t)s * (top ? 1 : 2) + j) * g.S + gs;
+      cp_async4(plane_of(b, 0) + s * HB + h, (top ? gh.top.f[0] : gh.bot.f[0]) + i2);
+#pragma unroll
+      for (int k = 1; k < NF - 1; ++k) {
+        if (j == 0)
+          cp_async4(plane_of(b, k) + s * HB + h, (top ? gh.top.f[k] : gh.bot.f[k]) + i1);
+        else
+          plane_of(b, k)[s * HB + h] = 0.0f;
+      }
+      cp_async4(pid_of(b) + s * HB + h, (top ? gh.top.pid : gh.bot.pid) + i2);
     }
   };
   // the masks of a row that has arrived (threads tid < HB)
@@ -213,7 +265,7 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
     unsigned char* b = buf(w);
     Masks mw, ms;
     uint32_t far = 0;
-    if (w >= 0 && w < g.W && in_array) {
+    if (held(w) && in_array) {
       const int* pid = pid_of(b);
 #pragma unroll 4
       for (int s = 0; s < cap; ++s) {
@@ -227,7 +279,7 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
         for (int k = 0; k < NC; ++k) raw[k] = raw_dir(c[k], g.inv[k]);
         const uint32_t bit = 1u << s;
         mw.alive |= bit;
-        const int dw = clamp_dir(raw[0], w, g.nw);
+        const int dw = clamp_dir(raw[0], gw(w), g.nw);
         const int ds = clamp_dir(raw[FS], gs, g.ns);
         if (dw < 0) mw.neg |= bit;
         if (dw > 0) mw.pos |= bit;
@@ -370,7 +422,7 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
         if (dy < 0) atomicAdd(&mon[o], 1);
         if (dy > 0) atomicAdd(&mon[T + o], 1);
       } else {
-        if (dir1(v[0], w, g.nw, g.inv[0]) != 0 ||
+        if (dir1(v[0], gw(w), g.nw, g.inv[0]) != 0 ||
             dir1(v[FS], s0 + o, g.ns, g.inv[FS]) != 0)
           atomicAdd(&mon[o], 1);
       }

@@ -188,14 +188,15 @@ def register_engine(cls: Type[Engine]) -> Type[Engine]:
     return cls
 
 
-def get_engine(name: str, config: SimConfig, device="cuda") -> Engine:
+def get_engine(name: str, config: SimConfig, device="cuda", **options) -> Engine:
     """Engine ``name`` for ``config`` on ``device``: the card unless the
-    caller asks for the CPU (``cuda`` without a GPU raises)."""
+    caller asks for the CPU (``cuda`` without a GPU raises). ``options`` go
+    to the engine (``sharded_grid``: ``shards``, ``mesh``, ``impl``)."""
     try:
         cls = _REGISTRY[name]
     except KeyError:
         raise ValueError(f"unknown engine {name!r}; have {sorted(_REGISTRY)}") from None
-    return cls(config, device=device)
+    return cls(config, device=device, **options)
 
 
 def engine_names(ndim: Optional[int] = None) -> list:

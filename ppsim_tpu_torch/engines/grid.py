@@ -127,11 +127,13 @@ class GridEngine(Engine):
     # Auto-capacity runs self-heal: a run that dropped particles (or whose
     # initial packing overflowed) raises capacity and re-runs from the
     # initial state (Engine.run below and harness.timed_run, bounded
-    # retries). A hand grid_capacity never retries.
+    # retries). A hand grid_capacity never retries; nor does an engine that
+    # sets _capacity_retry False (sharded_grid, as in the JAX package).
+    _capacity_retry = True
     _DROP_RETRIES = 2
 
     def maybe_escalate_after_drop(self, result) -> bool:
-        if self.config.grid_capacity is not None:
+        if self.config.grid_capacity is not None or not self._capacity_retry:
             return False
         dropped = int(result.monitors.migrate_dropped)
         packing = int(result.monitors.max_bin_count)

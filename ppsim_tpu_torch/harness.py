@@ -12,6 +12,13 @@ after ``torch.cuda.synchronize()``.
     python -m ppsim_tpu_torch -n 20971520 -s 42 --engine cuda --grid-rebin-mode dirs9
     python -m ppsim_tpu_torch -n 20971520 --ndim 3 --density 7e-6 \
         --force-law lj --dt 1e-4 -s 42 --engine cuda3d
+    python -m ppsim_tpu_torch -n 20971520 -s 42 --engine sharded_grid --shards 4
+    torchrun --nproc-per-node 2 -m ppsim_tpu_torch -n 262144 --engine sharded_grid
+
+Under ``torchrun`` (``WORLD_SIZE`` set) ``sharded_grid`` runs one shard a
+process over ``torch.distributed`` (NCCL on the cards, gloo with ``--device
+cpu``); every process runs the same program and rank 0 alone prints and
+writes.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from ppsim_tpu_torch.config import SimConfig
 from ppsim_tpu_torch.engines import engine_names, get_engine
@@ -100,6 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "fast (seeded lattice on the engine's device, 2D or "
                         "3D) or auto (reference in 2D, fast in 3D; a random "
                         "seed for -s 0)")
+    p.add_argument("--shards", type=int, default=None, metavar="N",
+                   help="sharded_grid: N row strips held in this process "
+                        "(the JAX CLI's --cpu-mesh N; default 1, or one "
+                        "process a shard under torchrun)")
     p.add_argument("--metrics", type=str, default=None, help="append a JSONL metrics record")
     p.add_argument("--trace", type=str, default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the timed run "
@@ -197,12 +209,25 @@ def main(argv=None) -> int:
     effective_savefreq = savefreq if (args.o or args.check) else 0
 
     engine_name = args.engine or ("cuda3d" if args.ndim == 3 else "cuda")
-    engine = get_engine(engine_name, config, device=args.device)
-    state = init_particles(config, seed=args.s, method=args.init,
-                           device=engine.device)
-    with trace(args.trace) if args.trace else contextlib.nullcontext():
-        result, seconds = timed_run(engine, state, nsteps, effective_savefreq)
-    engine.check(result)
+    options = {}
+    if args.shards is not None:
+        if engine_name != "sharded_grid":
+            parser.error("--shards applies to --engine sharded_grid")
+        options["shards"] = args.shards
+    try:
+        engine = get_engine(engine_name, config, device=args.device, **options)
+        state = init_particles(config, seed=args.s, method=args.init,
+                               device=engine.device)
+        with trace(args.trace) if args.trace else contextlib.nullcontext():
+            result, seconds = timed_run(engine, state, nsteps, effective_savefreq)
+        engine.check(result)
+    finally:
+        distributed = dist.is_initialized()
+        rank = dist.get_rank() if distributed else 0
+        if distributed:
+            dist.destroy_process_group()
+    if rank != 0:
+        return 0
 
     if args.o:
         write_trajectory(args.o, result.frames, config.size)

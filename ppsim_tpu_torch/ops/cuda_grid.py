@@ -5,6 +5,11 @@
   move, wall fold and the per-bin max|v|^2 plane in one pass; it replaces
   ``grid_step_pallas`` with either ``symmetric`` setting, the two-sided form
   being K1's own design); plain twin :func:`grid_step_plain`.
+- Both take a shard's inputs (the sharded engine, ``engines/sharded_grid.py``):
+  ``row0``, the global row of the planes' first row, and ``ghosts``, the
+  neighbouring shards' boundary rows ``(top_xl, top_yl, bot_xl, bot_yl)``,
+  each (cap, 1, C) float32, which take the place of the BIG fill above and
+  below the planes. K1 is owner-computes, so a ghost row is only read.
 - :func:`grid_force_cuda` launches K6 (the same file: the accelerations
   only; it replaces ``grid_force_pallas``); plain twin
   :func:`grid_force_plain`.
@@ -35,7 +40,8 @@ from ppsim_tpu_torch.ops.binning import BIG
 from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, f32, grid_force_xla, move_planes
 from ppsim_tpu_torch.physics import lj_coef_from_r2
 
-__all__ = ["grid_step_cuda", "grid_step_plain", "grid_force_cuda",
+__all__ = ["grid_step_cuda", "grid_step_plain", "grid_force_cuda", "slab_shape",
+           "check_ghosts",
            "grid_force_plain", "MAX_CAP", "LAWS", "pair_args", "kernel_coef_of",
            "TilePlan", "tile_smem", "step_plan", "SMEM_LIMIT", "SMEM_TWO_BLOCKS"]
 
@@ -164,14 +170,24 @@ def grid_force_plain(xl, yl, geom: SlabGeometry, cutoff, min_r, mass,
 
 
 def grid_step_plain(xl, yl, vx, vy, geom: SlabGeometry, cutoff, min_r, mass,
-                    dt, size, law="repulsive", law_params=()):
+                    dt, size, law="repulsive", law_params=(), row0=0,
+                    ghosts=None):
     """Plain twin of K1: :func:`grid_force_plain` + the move, returning
     ``(xl', yl', vx', vy', speed2)`` with ``speed2`` the (R, C) plane of
     per-bin max |v|^2. Like the kernel (and the TPU kernel), slot aliveness
-    comes from the position sentinel: dead slots hold exactly BIG."""
-    ax, ay = grid_force_plain(xl, yl, geom, cutoff, min_r, mass, law, law_params)
+    comes from the position sentinel: dead slots hold exactly BIG. With
+    ``ghosts`` the force runs on the planes extended by the ghost rows and
+    the interior is kept (the JAX package's ``_local_plain_xla``); ``row0``
+    enters the move's wall fold."""
+    if ghosts is None:
+        ax, ay = grid_force_plain(xl, yl, geom, cutoff, min_r, mass, law, law_params)
+    else:
+        tx, ty, bx, by = ghosts
+        ax, ay = (a[:, 1:-1] for a in grid_force_plain(
+            torch.cat([tx, xl, bx], 1), torch.cat([ty, yl, by], 1), geom,
+            cutoff, min_r, mass, law, law_params))
     xl, yl, vx, vy, speed2 = move_planes(xl, yl, vx, vy, ax, ay,
-                                         xl < 0.5 * BIG, geom, dt, size)
+                                         xl < 0.5 * BIG, geom, dt, size, row0)
     return xl, yl, vx, vy, speed2.amax(dim=0)
 
 
@@ -189,26 +205,53 @@ def _check_planes(planes, shape, dtype=torch.float32) -> None:
             raise ValueError("slab planes on different devices")
 
 
+def slab_shape(geom: SlabGeometry, planes) -> Tuple[int, int, int]:
+    """(cap, R, C) of slab planes: the rows are the planes' own (a shard's
+    rows, or the geometry's padded rows), the columns the geometry's."""
+    return geom.capacity, planes.shape[1], geom.cols_pad
+
+
+def _ptrs(ghosts, n: int):
+    """Device pointers of optional ghost planes (0 when there are none)."""
+    return (0,) * n if ghosts is None else tuple(t.data_ptr() for t in ghosts)
+
+
+def check_ghosts(ghosts, shapes, device, dtypes=None) -> None:
+    """Ghost planes: CUDA, contiguous, on ``device``, of ``shapes`` (float32
+    unless ``dtypes`` says otherwise)."""
+    if len(ghosts) != len(shapes):
+        raise ValueError(f"expected {len(shapes)} ghost planes, got {len(ghosts)}")
+    for i, (t, shape) in enumerate(zip(ghosts, shapes)):
+        _check_planes((t,), shape, torch.float32 if dtypes is None else dtypes[i])
+        if t.device != device:
+            raise ValueError("ghost planes on another device than the slab")
+
+
 def grid_step_cuda(xl, yl, vx, vy, geom: SlabGeometry, cutoff, min_r, mass,
-                   dt, size, law="repulsive", law_params=()):
+                   dt, size, law="repulsive", law_params=(), row0=0,
+                   ghosts=None):
     """Fused step, same contract as :func:`grid_step_plain`. CUDA tensors
     launch K1 (``grid_step_cuda.launches`` counts the launches); CPU tensors
     run the plain twin."""
     if xl.device.type == "cpu":
         return grid_step_plain(xl, yl, vx, vy, geom, cutoff, min_r, mass, dt,
-                               size, law, law_params)
-    _check_planes((xl, yl, vx, vy), geom.shape)
-    cap, R, C = geom.shape
+                               size, law, law_params, row0, ghosts)
+    shape = slab_shape(geom, xl)
+    _check_planes((xl, yl, vx, vy), shape)
+    cap, R, C = shape
+    if ghosts is not None:
+        check_ghosts(ghosts, [(cap, 1, C)] * 4, xl.device)
     if cap > MAX_CAP:
         raise ValueError(f"capacity {cap} > {MAX_CAP}, the kernel's largest")
     law_id, *consts = pair_args(law, cutoff, min_r, mass, law_params)
-    plan = step_plan(geom.shape)
+    plan = step_plan(shape)
     outs = [torch.empty_like(xl) for _ in range(4)]
     speed2 = torch.empty((R, C), dtype=torch.float32, device=xl.device)
     lib = _build.kernels()
     err = lib.ppsim_grid_step(
-        *(t.data_ptr() for t in (xl, yl, vx, vy, *outs, speed2)),
-        xl.device.index, cap, R, C, law_id, *plan.tile, plan.seg,
+        *(t.data_ptr() for t in (xl, yl, vx, vy)), *_ptrs(ghosts, 4),
+        *(t.data_ptr() for t in (*outs, speed2)),
+        xl.device.index, cap, R, C, int(row0), law_id, *plan.tile, plan.seg,
         plan.threads, plan.blocks, plan.smem, f32(geom.bin_size), *consts,
         f32(dt), f32(size), torch.cuda.current_stream(xl.device).cuda_stream)
     _build.check_launch(err, "grid_step kernel")

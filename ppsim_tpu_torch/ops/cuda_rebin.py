@@ -19,6 +19,18 @@ through shared memory as K2 does, on the plan :func:`shuffle_plan`, whose
 :func:`rebin_shuffle_plain` (``grid_ops.rebin_shuffle``). They decide every
 move exactly as ``grid_ops.grid_rebin`` does (bitwise).
 
+Shard forms (the sharded engine, ``engines/sharded_grid.py``): every
+wrapper and twin takes ``row0``, the global row of the planes' first row,
+and the rebins take the neighbouring shards' ghost rows, in the JAX
+package's layout: ``field_ghosts`` a (top, bot) pair per field in (xl, yl,
+vx, vy, pid) order, ``count_ghosts`` one (top, bot) pair of the count stack.
+K2 takes 1 row from above for every field and, from below, 2 rows of xl and
+pid and 1 of the others (its walk reads masks at rows w-1..w+2 and fields
+at w-1..w+1); K8 takes 1 field row each side and 2 count rows each side
+(its rings: fields at r-1..r+1, counts at r-2..r+2). The twins run the
+single-device twin on the planes extended by the ghost rows and keep the
+interior. Without ghosts the call is the single-device one.
+
 ``cnt`` is the int32 (4, R, C) monitor stack ``[far_pre, alive_pre,
 alive_post, resid]`` in both modes (``grid_ops.monitor_planes``), so
 :func:`grid_rebin_cuda` reports the monitors of the JAX package's
@@ -34,11 +46,12 @@ import torch
 
 from ppsim_tpu_torch import _build
 from ppsim_tpu_torch.ops.cuda_grid import (
-    MAX_CAP, SMEM_TWO_BLOCKS, TILE_THREADS, TilePlan, _align16, _check_planes, segment,
+    MAX_CAP, SMEM_TWO_BLOCKS, TILE_THREADS, TilePlan, _align16, _check_planes, _ptrs,
+    check_ghosts, segment, slab_shape,
 )
 from ppsim_tpu_torch.ops.grid_ops import (
-    SlabGeometry, SlabState, f32, monitor_planes, monitors_of_counts,
-    rebin_axes_planes as rebin_axes_call_plain, rebin_counts, rebin_shuffle,
+    SLAB_FILLS, SlabGeometry, SlabState, _axis_pass2, f32, monitor_planes, monitors_of_counts,
+    rebin_axes_planes, rebin_counts, rebin_shuffle,
 )
 
 __all__ = ["rebin_axes_call_cuda", "rebin_axes_call_plain", "grid_rebin_axes_cuda",
@@ -119,29 +132,71 @@ def shuffle_plan(shape) -> TilePlan:
     return TilePlan((t,), seg, TILE_THREADS, strips * -(-R // seg), shuffle_smem(cap, t))
 
 
-def _check_slab(state: SlabState, geom: SlabGeometry) -> None:
-    _check_planes(state[:4], geom.shape)
-    _check_planes(state[4:], geom.shape, dtype=torch.int32)
+# The slab fields' types, (xl, yl, vx, vy, pid).
+_FIELD_DTYPES = (torch.float32,) * 4 + (torch.int32,)
+
+
+def _check_slab(state: SlabState, geom: SlabGeometry):
+    """Checks the slab's planes; returns their (cap, R, C)."""
+    shape = slab_shape(geom, state.xl)
+    _check_planes(state[:4], shape)
+    _check_planes(state[4:], shape, dtype=torch.int32)
     if geom.capacity > MAX_CAP:
         raise ValueError(f"capacity {geom.capacity} > {MAX_CAP}, the kernel's largest")
+    return shape
 
 
-def rebin_axes_call_cuda(state: SlabState, geom: SlabGeometry, evac_cap: int):
+def _ghost_ptrs(field_ghosts, shape, bot_rows, device):
+    """Checked device pointers of ``field_ghosts`` (top planes, then bottom
+    planes; zeros without ghosts). ``bot_rows[k]`` rows below for field k."""
+    if field_ghosts is None:
+        return (0,) * 10
+    cap, _, C = shape
+    tops, bots = zip(*field_ghosts)
+    check_ghosts(tops, [(cap, 1, C)] * 5, device, _FIELD_DTYPES)
+    check_ghosts(bots, [(cap, n, C) for n in bot_rows], device, _FIELD_DTYPES)
+    return _ptrs(tops, 5) + _ptrs(bots, 5)
+
+
+def rebin_axes_call_plain(state: SlabState, geom: SlabGeometry, evac_cap: int,
+                          row0=0, field_ghosts=None):
+    """Plain twin of K2: ``grid_ops.rebin_axes_planes``; with
+    ``field_ghosts``, on the planes extended by the ghost rows (1 row above;
+    2 below, where row R+1 carries xl and pid only: the x pass reads no
+    other field there, so they are zero), keeping the interior."""
+    if field_ghosts is None:
+        return rebin_axes_planes(state, geom, evac_cap, row0)
+    R = state.xl.shape[1]
+    ext = []
+    for f, (top, bot) in zip(state, field_ghosts):
+        if bot.shape[1] == 1:
+            bot = torch.cat([bot, torch.zeros_like(bot)], 1)
+        ext.append(torch.cat([top, f, bot], 1))
+    st = _axis_pass2(SlabState(*ext), geom, evac_cap, 0, row0 - 1)
+    st = _axis_pass2(st, geom, evac_cap, 1, row0 - 1)
+    new = SlabState(*(f[:, 1:R + 1].contiguous() for f in st))
+    return new, monitor_planes(state, new, geom, row0)
+
+
+def rebin_axes_call_cuda(state: SlabState, geom: SlabGeometry, evac_cap: int,
+                         row0=0, field_ghosts=None):
     """K2 on CUDA tensors (``rebin_axes_call_cuda.launches`` counts the
     launches, one a call); the plain twin on CPU tensors."""
     if state.xl.device.type == "cpu":
-        return rebin_axes_call_plain(state, geom, evac_cap)
-    _check_slab(state, geom)
-    cap, R, C = geom.shape
-    plan = rebin_plan(geom.shape)
+        return rebin_axes_call_plain(state, geom, evac_cap, row0, field_ghosts)
+    shape = _check_slab(state, geom)
+    cap, R, C = shape
+    ghosts = _ghost_ptrs(field_ghosts, shape, (2, 1, 1, 1, 2), state.xl.device)
+    plan = rebin_plan(shape)
     # The output slab and the count planes are fresh buffers; the input slab
     # is left untouched.
     out = SlabState(*(torch.empty_like(t) for t in state))
     cnt = torch.empty((4, R, C), dtype=torch.int32, device=state.xl.device)
     lib = _build.kernels()
     err = lib.ppsim_rebin_axes(
-        *(t.data_ptr() for t in (*state, *out, cnt)),
-        state.xl.device.index, cap, R, C, geom.rows, geom.cols, evac_cap,
+        *(t.data_ptr() for t in state), *ghosts,
+        *(t.data_ptr() for t in (*out, cnt)),
+        state.xl.device.index, cap, R, C, int(row0), geom.rows, geom.cols, evac_cap,
         *plan.tile, plan.seg, plan.threads, plan.blocks, plan.smem,
         f32(geom.bin_size), f32(1.0 / geom.bin_size),
         torch.cuda.current_stream(state.xl.device).cuda_stream)
@@ -160,29 +215,45 @@ def grid_rebin_axes_cuda(state: SlabState, geom: SlabGeometry, evac_cap: int):
     return new, monitors_of_counts(cnt)
 
 
-def rebin_counts_plain(state: SlabState, geom: SlabGeometry):
+def rebin_counts_plain(state: SlabState, geom: SlabGeometry, row0=0):
     """Plain twin of K7: the int32 (9, R, C) dirs9 count stack."""
-    return rebin_counts(state, geom)[0]
+    return rebin_counts(state, geom, row0)[0]
 
 
-def rebin_shuffle_plain(state: SlabState, counts, geom: SlabGeometry, evac_cap: int):
+def rebin_shuffle_plain(state: SlabState, counts, geom: SlabGeometry, evac_cap: int,
+                        row0=0, field_ghosts=None, count_ghosts=None):
     """Plain twin of K8: ``(SlabState, cnt)``, the shuffled slab and its
-    monitor planes."""
-    new, _ = rebin_shuffle(state, counts, geom, evac_cap)
-    return new, monitor_planes(state, new, geom)
+    monitor planes. With ghosts (both kinds or neither), the shuffle runs on
+    the planes extended by two rows each side, the JAX engine's
+    ``_local_rebin_xla`` form: the ghost field row and beyond it an empty
+    row, the two ghost count rows; the interior is kept. The empty rows are
+    read only by the ghost rows' own decisions, which the interior never
+    reads."""
+    if (field_ghosts is None) != (count_ghosts is None):
+        raise ValueError("K8's shard form takes field and count ghosts together")
+    if field_ghosts is None:
+        new, _ = rebin_shuffle(state, counts, geom, evac_cap, row0)
+        return new, monitor_planes(state, new, geom, row0)
+    R = state.xl.shape[1]
+    ext = SlabState(*(
+        torch.cat([torch.full_like(top, fill), top, f, bot, torch.full_like(bot, fill)], 1)
+        for f, (top, bot), fill in zip(state, field_ghosts, SLAB_FILLS)))
+    ct, cb = count_ghosts
+    new, _ = rebin_shuffle(ext, torch.cat([ct, counts, cb], 1), geom, evac_cap, row0 - 2)
+    new = SlabState(*(f[:, 2:R + 2].contiguous() for f in new))
+    return new, monitor_planes(state, new, geom, row0)
 
 
-def rebin_counts_cuda(state: SlabState, geom: SlabGeometry):
+def rebin_counts_cuda(state: SlabState, geom: SlabGeometry, row0=0):
     """K7 on CUDA tensors (``rebin_counts_cuda.launches`` counts the
     launches); the plain twin on CPU tensors."""
     if state.xl.device.type == "cpu":
-        return rebin_counts_plain(state, geom)
-    _check_slab(state, geom)
-    cap, R, C = geom.shape
+        return rebin_counts_plain(state, geom, row0)
+    cap, R, C = _check_slab(state, geom)
     counts = torch.empty((9, R, C), dtype=torch.int32, device=state.xl.device)
     err = _build.kernels().ppsim_rebin_counts(
         state.xl.data_ptr(), state.yl.data_ptr(), state.pid.data_ptr(),
-        counts.data_ptr(), state.xl.device.index, cap, R, C, geom.rows,
+        counts.data_ptr(), state.xl.device.index, cap, R, C, int(row0), geom.rows,
         geom.cols, f32(1.0 / geom.bin_size),
         torch.cuda.current_stream(state.xl.device).cuda_stream)
     _build.check_launch(err, "rebin_counts kernel")
@@ -193,21 +264,32 @@ def rebin_counts_cuda(state: SlabState, geom: SlabGeometry):
 rebin_counts_cuda.launches = 0
 
 
-def rebin_shuffle_cuda(state: SlabState, counts, geom: SlabGeometry, evac_cap: int):
+def rebin_shuffle_cuda(state: SlabState, counts, geom: SlabGeometry, evac_cap: int,
+                       row0=0, field_ghosts=None, count_ghosts=None):
     """K8 on CUDA tensors (``rebin_shuffle_cuda.launches`` counts the
     launches); the plain twin on CPU tensors. The output slab and the monitor
     planes are fresh buffers; the input slab is left untouched."""
     if state.xl.device.type == "cpu":
-        return rebin_shuffle_plain(state, counts, geom, evac_cap)
-    _check_slab(state, geom)
-    cap, R, C = geom.shape
+        return rebin_shuffle_plain(state, counts, geom, evac_cap, row0,
+                                   field_ghosts, count_ghosts)
+    if (field_ghosts is None) != (count_ghosts is None):
+        raise ValueError("K8's shard form takes field and count ghosts together")
+    shape = _check_slab(state, geom)
+    cap, R, C = shape
     _check_planes((counts,), (9, R, C), dtype=torch.int32)
-    plan = shuffle_plan(geom.shape)
+    fghosts = _ghost_ptrs(field_ghosts, shape, (1,) * 5, state.xl.device)
+    if count_ghosts is None:
+        cghosts = (0, 0)
+    else:
+        check_ghosts(count_ghosts, [(9, 2, C)] * 2, state.xl.device, (torch.int32,) * 2)
+        cghosts = _ptrs(count_ghosts, 2)
+    plan = shuffle_plan(shape)
     out = SlabState(*(torch.empty_like(t) for t in state))
     cnt = torch.empty((4, R, C), dtype=torch.int32, device=state.xl.device)
     err = _build.kernels().ppsim_rebin_shuffle(
-        *(t.data_ptr() for t in (*state, counts, *out, cnt)),
-        state.xl.device.index, cap, R, C, geom.rows, geom.cols, evac_cap,
+        *(t.data_ptr() for t in (*state, counts)), *fghosts, *cghosts,
+        *(t.data_ptr() for t in (*out, cnt)),
+        state.xl.device.index, cap, R, C, int(row0), geom.rows, geom.cols, evac_cap,
         *plan.tile, plan.seg, plan.threads, plan.blocks, plan.smem,
         f32(geom.bin_size), f32(1.0 / geom.bin_size),
         torch.cuda.current_stream(state.xl.device).cuda_stream)

@@ -60,8 +60,10 @@ def phase_times(engine, state, steps: int = 50) -> Dict[str, float]:
     ``{"step", "force+move", "rebin", "overhead"}``. Each phase cost is the
     marginal slowdown against a variant with that phase disabled:
     ``move_phase`` (the fused force + move) or ``rebin_of``, patched on the
-    instance for the variant's runs. Any other engine raises TypeError: the
-    port has no particle-list engine, whose phase seam differs."""
+    instance for the variant's runs, or, for the sharded engine, skipped by
+    its ``_phase_disable`` flag (the JAX package's sharded seam). Any other
+    engine raises TypeError: the port has no particle-list engine, whose
+    phase seam differs."""
     from ppsim_tpu_torch.engines.grid import GridEngine
     from ppsim_tpu_torch.ops.grid_ops import RebinMonitors
 
@@ -74,7 +76,13 @@ def phase_times(engine, state, steps: int = 50) -> Dict[str, float]:
     def timed() -> float:
         return timeit_steps(engine.step, carry, 10, 10 + steps, device=dev)
 
-    def timed_without(name: str, stub) -> float:
+    def timed_without(name: str, stub, phase: str) -> float:
+        if hasattr(engine, "_phase_disable"):  # the sharded seam
+            engine._phase_disable = phase
+            try:
+                return timed()
+            finally:
+                engine._phase_disable = None
         own = vars(engine).get(name)
         setattr(engine, name, stub)
         try:
@@ -88,9 +96,9 @@ def phase_times(engine, state, steps: int = 50) -> Dict[str, float]:
     t_full = timed()
     zf = torch.zeros((), dtype=torch.float32, device=dev)
     zi = torch.zeros((), dtype=torch.int32, device=dev)
-    t_nomove = timed_without("move_phase", lambda slab: (slab, zf))
+    t_nomove = timed_without("move_phase", lambda slab: (slab, zf), "move")
     t_norebin = timed_without("rebin_of",
-                              lambda slab: (slab, RebinMonitors(zi, zi, zi)))
+                              lambda slab: (slab, RebinMonitors(zi, zi, zi)), "rebin")
     force_move = max(t_full - t_nomove, 0.0)
     rebin = max(t_full - t_norebin, 0.0)
     return {

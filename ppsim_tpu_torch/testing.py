@@ -14,7 +14,8 @@ from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, SlabState
 
 __all__ = ["STRESS_GEOMETRY", "stress_slab", "STRESS_GEOMETRY3", "stress_slab3",
            "STEP_SLAB_KINDS", "step_slab", "REBIN_EDGE_GEOMETRY",
-           "REBIN_EDGE_GEOMETRY3", "rebin_edge_slab"]
+           "REBIN_EDGE_GEOMETRY3", "rebin_edge_slab", "SHARD_EDGE_GEOMETRY",
+           "shard_edge_slab"]
 
 # 13 x 100 physical bins padded to 16 x 128, capacity 4: the JAX package's
 # contention geometry (tests/test_grid_ops.py).
@@ -235,3 +236,50 @@ def rebin_edge_slab(geom, plan, seed: int = 0, device="cpu"):
     pid = np.full(geom.shape, -1, np.int32)
     pid[live] = rng.permutation(n_live).astype(np.int32)
     return make(*fields, pid, device=device)
+
+
+# 29 x 70 physical bins in 32 x 128, capacity 4: shards of 16 rows (P = 2)
+# or 8 (P = 4), the last one ragged (rows 29-31 are padding), as the
+# sharded engine pads rows to P strips of a multiple of 8.
+SHARD_EDGE_GEOMETRY = SlabGeometry(rows=29, cols=70, rows_pad=32, cols_pad=128,
+                                   capacity=4, bin_size=0.05)
+
+
+def shard_edge_slab(geom: SlabGeometry, shards: int, seed: int = 0,
+                    contention: bool = False, device="cpu") -> SlabState:
+    """A slab whose rebin traffic crosses the boundaries of ``shards`` row
+    strips of ``geom.rows_pad // shards`` rows: every physical bin holds 0 to
+    ``capacity`` live particles in random slots, the first and last rows of
+    each strip (and the rows beside them) at least ``capacity - 2``, and
+    every particle sits up to one bin outside its own on both axes, so
+    movers cross each boundary up, down and diagonally; none is a far mover,
+    so nothing is dropped. With ``contention`` those rows hold ``capacity -
+    1`` or ``capacity``: the movers across a boundary compete for at most
+    one free slot a bin, and the rest are deferred, never dropped."""
+    rng = np.random.default_rng(seed)
+    cap, R, C = geom.shape
+    rl = R // shards
+    occ = rng.integers(0, cap + 1, size=(R, C))
+    lo = cap - 1 if contention else cap - 2
+    for d in range(shards):
+        for r in (d * rl - 1, d * rl, d * rl + 1, d * rl + rl - 2, d * rl + rl - 1):
+            if 0 <= r < R:
+                occ[r] = rng.integers(lo, cap + 1, size=C)
+    occ[geom.rows:] = 0
+    occ[:, geom.cols:] = 0
+    rank = np.argsort(np.argsort(rng.random((cap, R, C)), axis=0), axis=0)
+    live = rank < occ[None]
+    n = int(live.sum())
+    bs = geom.bin_size
+    fields = []
+    for _ in range(2):
+        f = np.full(geom.shape, BIG, np.float32)
+        f[live] = rng.uniform(-bs, 2 * bs, n)
+        fields.append(f)
+    for _ in range(2):
+        v = np.zeros(geom.shape, np.float32)
+        v[live] = rng.normal(size=n)
+        fields.append(v)
+    pid = np.full(geom.shape, -1, np.int32)
+    pid[live] = rng.permutation(n).astype(np.int32)
+    return slab_state_from_numpy(*fields, pid, device=device)

@@ -352,8 +352,9 @@ def test_shuffle_entry_point_refuses_other_plans(cuda):
 
     def launch(tile, seg, threads, blocks, smem):
         err = lib.ppsim_rebin_shuffle(
-            *(t.data_ptr() for t in (*slab, counts, *out, cnt)), cuda.index, cap, R,
-            C, geom.rows, geom.cols, 2, tile, seg, threads, blocks, smem,
+            *(t.data_ptr() for t in (*slab, counts)), *(0,) * 12,
+            *(t.data_ptr() for t in (*out, cnt)), cuda.index, cap, R,
+            C, 0, geom.rows, geom.cols, 2, tile, seg, threads, blocks, smem,
             grid_ops.f32(geom.bin_size), grid_ops.f32(1.0 / geom.bin_size),
             torch.cuda.current_stream(cuda).cuda_stream)
         torch.cuda.synchronize()
