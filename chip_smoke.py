@@ -71,11 +71,24 @@ Phases, each printing its result and seconds on its own line:
    11): monitors, pid census, a checker PASS on the final frame, the final
    state bitwise equal to phase 3's, its seconds beside phase 3's, and a
    profiler window of two rebin periods; (c) the same with dirs9 for 200
-   steps, against the single-device ``cuda`` engine's 200-step run.
+   steps, against the single-device ``cuda`` engine's 200-step run;
+11. the 3D shard forms and ``sharded_grid3d`` on 4 in-process shards: (a)
+   K3, K4 and K5 with a y offset and real ghost slabs on the step-8 stretch
+   slab cut into 4 shards of 35 slabs, against their twins (K3 allclose, the
+   rebins bitwise, count planes included) and against the rows of the
+   single-device kernels' output on the whole slab (bitwise for all three),
+   K4 and K5 also on the 3D shard-edge slab and its contention form
+   (``testing.shard_edge_slab3``); each shard form's time beside the
+   single-device call on the same slabs; (b) the stretch config on
+   ``sharded_grid3d`` at full width (n = 20,971,520, 3D LJ, 1000 steps,
+   cadence 8): monitors, pid census, a checker PASS on the final frame, the
+   final state bitwise equal to phase 6's, its seconds beside phase 6's, the
+   shard forms' times on the final state, and a profiler window of two
+   rebin periods.
 
 The line before the last is a JSON object with each kernel's launches in its
 full-width run (phase 3 for K1 and K2, phase 6 for K3-K5, phase 9 for K6-K8,
-phase 10 for the shard forms),
+phase 10 for the 2D shard forms, phase 11 for the 3D ones),
 its largest
 difference from the plain twin, its time beside the plain twin's and its
 bound (the larger of its bytes over 3.35 TB/s and its operations over 67
@@ -340,9 +353,11 @@ def k45_compare(name, slab, geom, evac) -> None:
         f"deferred) {mon}")
 
 
-def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
+def phase_3d(kernels, state2d, cfg2d, smi: str):
     """Phases 4-6: the 3D kernels against their twins, the 3D CLI, and the
-    stretch config at full width. Fills the K3-K5 records of ``kernels``."""
+    stretch config at full width. Fills the K3-K5 records of ``kernels``;
+    returns the stretch config's initial state and phase 6's (final
+    ParticleState, seconds)."""
     import torch
 
     from ppsim_tpu_torch.config import SimConfig
@@ -541,6 +556,7 @@ def phase_3d(kernels, state2d, cfg2d, smi: str) -> None:
     for line in win.table().splitlines():
         log(f"    {line}")
     phase_line("6", "stretch config at full width clean", t0)
+    return state3, (result.state, seconds)
 
 
 def k6_compare(name, slab, geom, cfg) -> float:
@@ -1037,6 +1053,250 @@ def phase_sharded(kernels, state, cfg, ref3, smi: str) -> None:
     phase_line("10c", "sharded dirs9 clean", t0)
 
 
+def shard_forms3(name, slab, geom, cfg, with_k3: bool):
+    """K3 (if ``with_k3``), K4 and K5 in their shard forms on the ``SHARDS``
+    y strips of ``slab`` (``LocalMesh``: each shard its own tensors, ghost
+    slabs copied by the mesh) against their twins and against the rows of
+    the single-device kernels' output on the whole slab. Returns K3's
+    largest difference from its twin and, per kernel, the calls on shard 1
+    (ghosts on both sides) for the timings: (shard form, twin with ghosts,
+    single-device call on the same slabs)."""
+    from ppsim_tpu_torch.engines.mesh import LocalMesh
+    from ppsim_tpu_torch.ops.binning import BIG
+    from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
+    from ppsim_tpu_torch.ops.cuda_rebin3 import (
+        ALIVE_PRE, FAR_PRE, rebin3_inplane_cuda, rebin3_inplane_plain,
+        rebin3_ypass_cuda, rebin3_ypass_plain,
+    )
+    from ppsim_tpu_torch.ops.grid3d_ops import FILLS3, Slab3State, rebin3_monitors
+
+    P, evac = SHARDS, cfg.evac_capacity
+    mesh = LocalMesh(P, slab.xl.device)
+    yl = slab.xl.shape[1] // P
+    shards = [Slab3State(*fs) for fs in zip(*(mesh.split(f) for f in slab))]
+
+    def rows(t, d):
+        return t[:, d * yl:(d + 1) * yl] if t.dim() == 4 else t[d * yl:(d + 1) * yl]
+
+    def compare(label, d, got, want, whole):
+        for k, (g, w, f) in enumerate(zip(got, want, whole)):
+            assert_equal(f"{label} {name} shard {d} output {k}", g, w)
+            assert_equal(f"{label} {name} shard {d} output {k} vs single device",
+                         g, rows(f, d))
+
+    calls, err3 = {}, 0.0
+    if with_k3:
+        a3 = (geom, cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size, cfg.force_law,
+              cfg.law_params)
+        whole = grid3_step_cuda(*slab[:6], *a3)
+        halos = [mesh.halo([s[k] for s in shards], BIG, 1, 1) for k in range(3)]
+        for d, s in enumerate(shards):
+            kw = dict(y0=d * yl, ghosts=tuple(h[d][0] for h in halos)
+                      + tuple(h[d][1] for h in halos))
+            got = grid3_step_cuda(*s[:6], *a3, **kw)
+            want = grid3_step_plain(*s[:6], *a3, **kw)
+            for p, g, w, f in zip(("xl", "yl", "zl", "vx", "vy", "vz", "speed2"),
+                                  got, want, whole):
+                err3 = max(err3, assert_close(f"K3 {name} shard {d} {p}", g, w,
+                                              K3_RTOL, K3_ATOL))
+                assert_equal(f"K3 {name} shard {d} {p} vs single device", g, rows(f, d))
+            del want
+            if d == 1:
+                calls["k3"] = (lambda s=s, kw=kw: grid3_step_cuda(*s[:6], *a3, **kw),
+                               lambda s=s, kw=kw: grid3_step_plain(*s[:6], *a3, **kw),
+                               lambda s=s: grid3_step_cuda(*s[:6], *a3))
+        del whole
+    wmid, wcnt = rebin3_inplane_cuda(slab, geom, evac)
+    whole = rebin3_ypass_cuda(wmid, wcnt, geom, evac)
+    mon = [int(v) for v in rebin3_monitors(wcnt[FAR_PRE], wcnt[ALIVE_PRE], whole[1])]
+    mids = [rebin3_inplane_cuda(s, geom, evac, y0=d * yl) for d, s in enumerate(shards)]
+    for d, (s, (mid, cnt)) in enumerate(zip(shards, mids)):
+        want, wc = rebin3_inplane_plain(s, geom, evac, y0=d * yl)
+        compare("K4", d, (*mid, cnt), (*want, wc), (*wmid, wcnt))
+        if d == 1:
+            calls["k4"] = (lambda s=s: rebin3_inplane_cuda(s, geom, evac, y0=yl),
+                           lambda s=s: rebin3_inplane_plain(s, geom, evac, y0=yl),
+                           lambda s=s: rebin3_inplane_cuda(s, geom, evac))
+    del wmid, wcnt
+    fh = [mesh.halo([m[k] for m, _ in mids], FILLS3[k], 1, 1) for k in range(7)]
+    ch = mesh.halo([c[:2] for _, c in mids], 0, 1, 2)
+    for d, (mid, cnt) in enumerate(mids):
+        kw = dict(y0=d * yl, field_ghosts=[h[d] for h in fh], count_ghosts=ch[d])
+        got, post = rebin3_ypass_cuda(mid, cnt, geom, evac, **kw)
+        want, wpost = rebin3_ypass_plain(mid, cnt, geom, evac, **kw)
+        compare("K5", d, (*got, post), (*want, wpost), (*whole[0], whole[1]))
+        if d == 1:
+            c0 = rebin3_inplane_cuda(shards[1], geom, evac)[1]
+            calls["k5"] = (
+                lambda m=mid, c=cnt, kw=kw: rebin3_ypass_cuda(m, c, geom, evac, **kw),
+                lambda m=mid, c=cnt, kw=kw: rebin3_ypass_plain(m, c, geom, evac, **kw),
+                lambda m=mid, c=c0: rebin3_ypass_cuda(m, c, geom, evac))
+    log(f"  3D shard forms, {name} ({P} shards of {yl} y slabs, real ghost slabs): "
+        + (f"K3 allclose to its twin (rtol {K3_RTOL:g}, atol {K3_ATOL:g}; max abs "
+           f"diff {err3:.3e}) and bitwise equal to the single-device K3's rows; "
+           if with_k3 else "")
+        + "K4, K5 bitwise equal to their twins and to the single-device kernels' "
+        f"rows (count and post planes included); monitors (max_occ, dropped, "
+        f"deferred) {mon}")
+    return err3, calls
+
+
+def phase_sharded3d(kernels, state3, ref6, smi: str) -> None:
+    """Phase 11: the shard forms of K3, K4 and K5 and the 3D sharded engine
+    at full width. Fills the 3D shard-form records of ``kernels``;
+    ``state3`` is the stretch config's initial state and ``ref6`` phase 6's
+    (final ParticleState, seconds)."""
+    import torch
+
+    from ppsim_tpu_torch.config import SimConfig
+    from ppsim_tpu_torch.engines import get_engine
+    from ppsim_tpu_torch.engines.mesh import LocalMesh
+    from ppsim_tpu_torch.harness import timed_run
+    from ppsim_tpu_torch.ops.binning import BIG
+    from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda
+    from ppsim_tpu_torch.ops.cuda_rebin3 import rebin3_inplane_cuda, rebin3_ypass_cuda
+    from ppsim_tpu_torch.ops.grid3d_ops import FILLS3
+    from ppsim_tpu_torch.profiling import profile_steps
+    from ppsim_tpu_torch.testing import SHARD_EDGE_GEOMETRY3, shard_edge_slab3
+
+    dev = torch.device("cuda", 0)
+    P = SHARDS
+    recs = {k: kernels[f"{name}_shard"] for k, name in (
+        ("k3", "grid3_step"), ("k4", "rebin3_inplane"), ("k5", "rebin3_ypass"))}
+
+    # ---- (a) the shard forms against their twins and the single device ----
+    t0 = time.perf_counter()
+    cfg3 = SimConfig(**STRETCH)
+    eng = get_engine("cuda3d", cfg3, device=dev)
+    geom = eng.geom
+    carry = eng.init_carry(state3)
+    for _ in range(eng.rebin_every):
+        carry = eng.step_plain(carry)
+    slab8 = carry.slab
+    del carry, eng
+    err3, calls = shard_forms3(f"stretch slab after {geom.cadence(cfg3)} steps", slab8,
+                               geom, cfg3, with_k3=True)
+    ge = SHARD_EDGE_GEOMETRY3
+    for contention in (False, True):
+        shard_forms3("shard-edge slab" + (" (contention)" if contention else ""),
+                     shard_edge_slab3(ge, P, seed=1, contention=contention, device=dev),
+                     ge, cfg3.with_(evac_capacity=2), with_k3=False)
+    recs["k3"]["max_abs_err"] = err3
+    recs["k4"]["max_abs_err"] = recs["k5"]["max_abs_err"] = 0.0
+    # times on shard 1 (35 slabs, ghosts on both sides): the shard form and
+    # the single-device call on the same slabs (no ghosts) in turns, the twin
+    times = {}
+    for k, (shard_fn, plain_fn, single_fn) in calls.items():
+        a = [cuda_ms(shard_fn, 10), cuda_ms(single_fn, 10)]
+        a += [cuda_ms(shard_fn, 10), cuda_ms(single_fn, 10)]
+        times[k] = (min(a[0], a[2]), min(a[1], a[3]), cuda_ms(plain_fn, 1))
+    # bounds on shard 1 of this slab: the single-device bytes of its slabs
+    # plus the ghost slabs read (K3: 3 planes x 2 slabs; K5: 7 planes x 2
+    # slabs and the count planes [m-, alive] x 3 slabs)
+    yl = geom.ys_pad // P
+    s1 = slab8.pid[:, yl:2 * yl]
+    plane_b = 4 * s1.numel()
+    bin_b = plane_b // geom.capacity
+    ys_b = 4 * geom.capacity * geom.xs_pad * geom.zs_pad  # one slab of one field
+    ext = slab8.pid[:, yl - 1:2 * yl + 1]
+    pairs1 = (candidate_pairs(ext) - candidate_pairs(ext[:, :1])
+              - candidate_pairs(ext[:, -1:]))
+    for k, nbytes, flops in (
+            ("k3", 12 * plane_b + bin_b + 6 * ys_b, 8 * pairs1),
+            ("k4", 14 * plane_b + 5 * bin_b, 0),
+            ("k5", 14 * plane_b + 4 * bin_b + 14 * ys_b + 6 * ys_b // geom.capacity, 0)):
+        bound, by = bound_of(nbytes, flops)
+        recs[k].update(ms=times[k][0], plain_ms=times[k][2], bound_ms=bound,
+                       bound_by=by, ms_single_same_rows=times[k][1])
+    whole_ms = {"k3": kernels["grid3_step"]["ms"], "k4": kernels["rebin3_inplane"]["ms"],
+                "k5": kernels["rebin3_ypass"]["ms"]}
+    log(f"  times on shard 1 of {P} ({yl} x {geom.xs_pad} x {geom.zs_pad} x "
+        f"{geom.capacity}; ms/call; {smi}): " + "; ".join(
+            f"{k.upper()} shard form {t[0]:.4f}, single-device call on the same slabs "
+            f"{t[1]:.4f}, whole slab / {P} {whole_ms[k] / P:.4f}, twin {t[2]:.3f}, "
+            f"bound {recs[k]['bound_ms']:.4f}" for k, t in times.items()))
+    del slab8, calls, s1, ext
+    torch.cuda.empty_cache()
+    phase_line("11a", "3D shard forms agree with their twins and the single device", t0)
+
+    # ---- (b) the stretch config on sharded_grid3d at full width ------------
+    t0 = time.perf_counter()
+    n3 = cfg3.num_parts
+    engine = get_engine("sharded_grid3d", cfg3, device=dev, shards=P)
+    # the single-device grid in P strips (at full width 140 = 4 x 35: no
+    # padding)
+    g = engine.geom
+    if (g.ys, g.ys_pad, g.xs_pad, g.zs_pad, g.capacity) != (
+            geom.ys, geom.ys_pad, geom.xs_pad, geom.zs_pad, geom.capacity):
+        raise AssertionError(f"sharded geometry {g} differs from {geom}")
+    for k in recs.values():
+        k["wrapper"].launches = 0
+    result, seconds = timed_run(engine, state3, STEPS_MAIN, 0)
+    for k in recs.values():
+        k["launches"] = k["wrapper"].launches
+    engine.check(result)
+    check_final(engine.full_slab(result.carry), result.state.pos, n3, 3, cfg3.size)
+    cadence = engine.rebin_every
+    want = [P * (STEPS_MAIN + cadence)] + [P * (STEPS_MAIN // cadence + 1)] * 2
+    got = [recs[k]["launches"] for k in ("k3", "k4", "k5")]
+    if got != want:
+        raise AssertionError(f"launches (K3, K4, K5) {got}, expected {want}")
+    final_frame_check("the sharded stretch config", result.state.pos, cfg3)
+    ref_state, ref_seconds = ref6
+    assert_equal("sharded stretch pos vs phase 6", result.state.pos, ref_state.pos)
+    assert_equal("sharded stretch vel vs phase 6", result.state.vel, ref_state.vel)
+    m = result.monitors
+    log(f"  sharded_grid3d ({P} shards of {engine.ys_local} y slabs, LocalMesh) "
+        f"n={n3} 3D LJ steps={STEPS_MAIN} rebin_every={cadence}: {seconds:.4f} s = "
+        f"{n3 * STEPS_MAIN / seconds / 1e6:.2f} M particle-steps/s; cuda3d (phase 6, "
+        f"same process): {ref_seconds:.4f} s; sharded / single = "
+        f"{seconds / ref_seconds:.4f} ({smi})")
+    log(f"  final state bitwise equal to phase 6's (positions and velocities); "
+        f"monitors: max_bin_count {int(m.max_bin_count)} dropped "
+        f"{int(m.migrate_dropped)} max_speed {float(m.max_speed):.4f} deferred "
+        f"{int(m.deferred)}")
+    log(f"  launches: grid3_step {got[0]}, rebin3_inplane {got[1]}, rebin3_ypass "
+        f"{got[2]} ({P} shards x the schedule {STEPS_MAIN} + {cadence} warm-up and "
+        f"{STEPS_MAIN // cadence} + 1 warm-up)")
+    log(f"  every pid 0..{n3 - 1} in exactly one slot")
+    carry = result.carry
+    del result
+    # the shard forms on shard 1 of the final state: the late-run slabs
+    shards = carry.slab
+    mesh = LocalMesh(P, dev)
+    s = shards[1]
+    y0 = engine.y0(1)
+    halos = [mesh.halo([t[k] for t in shards], BIG, 1, 1) for k in range(3)]
+    ghosts = tuple(h[1][0] for h in halos) + tuple(h[1][1] for h in halos)
+    a3 = (g, cfg3.cutoff, cfg3.min_r, cfg3.mass, cfg3.dt, cfg3.size, cfg3.force_law,
+          cfg3.law_params)
+    recs["k3"]["ms_late"] = late_ms(lambda: grid3_step_cuda(*s[:6], *a3, y0=y0,
+                                                            ghosts=ghosts))
+    mids = [rebin3_inplane_cuda(t, g, cfg3.evac_capacity, y0=engine.y0(d))
+            for d, t in enumerate(shards)]
+    recs["k4"]["ms_late"] = late_ms(lambda: rebin3_inplane_cuda(s, g, cfg3.evac_capacity,
+                                                                y0=y0))
+    fh = [mesh.halo([mm[k] for mm, _ in mids], FILLS3[k], 1, 1) for k in range(7)]
+    ch = mesh.halo([c[:2] for _, c in mids], 0, 1, 2)
+    recs["k5"]["ms_late"] = late_ms(lambda: rebin3_ypass_cuda(
+        *mids[1], g, cfg3.evac_capacity, y0=y0, field_ghosts=[h[1] for h in fh],
+        count_ghosts=ch[1]))
+    log(f"  K3, K4, K5 shard forms on shard 1 of the final state: "
+        f"{recs['k3']['ms_late']:.4f}, {recs['k4']['ms_late']:.4f}, "
+        f"{recs['k5']['ms_late']:.4f} ms/call (step-8 slab {recs['k3']['ms']:.4f}, "
+        f"{recs['k4']['ms']:.4f}, {recs['k5']['ms']:.4f}; {smi})")
+    del mids, fh, ch, halos, ghosts, s, shards
+    torch.cuda.empty_cache()
+    _, win = profile_steps(engine, carry, STEPS_MAIN + 1, 2 * cadence)
+    log(f"  torch.profiler, sharded stretch config, steps {win.steps.start}-"
+        f"{win.steps.stop - 1} ({smi}):")
+    for line in win.table(top=14).splitlines():
+        log(f"    {line}")
+    del carry, engine
+    torch.cuda.empty_cache()
+    phase_line("11b", "sharded stretch config at full width clean", t0)
+
+
 def main() -> int:
     import torch
 
@@ -1100,6 +1360,13 @@ def main() -> int:
                                     "pallas_rebin.py:242", rebin_counts_cuda),
         "rebin_shuffle_shard": entry("rebin_shuffle_shard", "rebin_dirs9.cu",
                                      "pallas_rebin.py:267", rebin_shuffle_cuda),
+        # the 3D shard forms (y offset + ghost y slabs)
+        "grid3_step_shard": entry("grid3_step_shard", "grid3_step.cu",
+                                  "pallas_grid3d.py:275", grid3_step_cuda),
+        "rebin3_inplane_shard": entry("rebin3_inplane_shard", "rebin3.cu",
+                                      "pallas_rebin3.py:388", rebin3_inplane_cuda),
+        "rebin3_ypass_shard": entry("rebin3_ypass_shard", "rebin3.cu",
+                                    "pallas_rebin3.py:466", rebin3_ypass_cuda),
     }
 
     # ---- phase 0: the card and the build ---------------------------------
@@ -1263,11 +1530,13 @@ def main() -> int:
     ref3 = (result.state, seconds)
     del result, engine
     torch.cuda.empty_cache()
-    phase_3d(kernels, state, cfg, smi)
+    state3, ref6 = phase_3d(kernels, state, cfg, smi)
     torch.cuda.empty_cache()
     phase_2d_rest(kernels, state, cfg, seconds, smi)
     torch.cuda.empty_cache()
     phase_sharded(kernels, state, cfg, ref3, smi)
+    torch.cuda.empty_cache()
+    phase_sharded3d(kernels, state3, ref6, smi)
 
     out = [{k: v for k, v in rec.items() if k != "wrapper"}
            for rec in kernels.values()]

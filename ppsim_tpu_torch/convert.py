@@ -18,7 +18,8 @@ from ppsim_tpu_torch.ops.grid_ops import SlabState
 from ppsim_tpu_torch.state import ParticleState, make_state
 
 __all__ = ["config_from_dict", "particle_state_from_numpy", "slab_state_from_numpy",
-           "slab3_state_from_numpy", "shards_from_numpy", "shards_to_numpy"]
+           "slab3_state_from_numpy", "shards_from_numpy", "shards3_from_numpy",
+           "shards_to_numpy"]
 
 
 def config_from_dict(fields: dict) -> SimConfig:
@@ -61,8 +62,20 @@ def shards_from_numpy(xl, yl, vx, vy, pid, shards: int, device="cpu"):
     return [slab_state_from_numpy(*fs, device=device) for fs in zip(*parts)]
 
 
+def shards3_from_numpy(xl, yl, zl, vx, vy, vz, pid, shards: int, device="cpu"):
+    """A JAX ``Slab3State`` (as numpy, (cap, P * Y, X, Z)) cut into the
+    port's list of ``shards`` y strips of Y slabs, each a Slab3State of its
+    own tensors (the 3D sharded engine's carry)."""
+    if np.shape(pid)[1] % shards:
+        raise ValueError(f"{np.shape(pid)[1]} y slabs do not split into {shards} shards")
+    parts = [np.split(np.asarray(a), shards, axis=1)
+             for a in (xl, yl, zl, vx, vy, vz, pid)]
+    return [slab3_state_from_numpy(*fs, device=device) for fs in zip(*parts)]
+
+
 def shards_to_numpy(shards):
-    """The port's shard list back to the five (cap, P * R, C) numpy arrays
-    (xl, yl, vx, vy, pid) of a JAX ``SlabState``."""
+    """The port's shard list back to the numpy arrays of a JAX slab state:
+    the five (cap, P * R, C) arrays (xl, yl, vx, vy, pid) of a
+    ``SlabState``, or the seven (cap, P * Y, X, Z) of a ``Slab3State``."""
     return tuple(np.concatenate([s[k].cpu().numpy() for s in shards], axis=1)
-                 for k in range(5))
+                 for k in range(len(shards[0])))

@@ -2,7 +2,8 @@
 // Verlet move, 3-axis wall fold and the per-bin max|v|^2 plane in one pass.
 //
 // Replaces: ppsim_tpu/ops/pallas_grid3d.py:_step3_kernel and
-// _step3_kernel_nospeed (through grid3_step_pallas). Plain twin:
+// _step3_kernel_nospeed (through grid3_step_pallas; with y0 and ghosts, its
+// shard form, pallas_grid3d.py:275-322). Plain twin:
 // ppsim_tpu_torch/ops/cuda_grid3.py grid3_step_plain (grid3_force_xla with
 // the kernels' pair arithmetic + move3_planes).
 //
@@ -54,6 +55,19 @@
 // memory that this design replaces lost 3.7-5.2x (PERF.md). The tile, the segment
 // length, the block size and the shared-memory bytes come from the Python
 // plan (cuda_grid3.step3_plan), which this entry point checks.
+//
+// Shards (the sharded engine, ops/cuda_grid3.py). A shard's planes are y
+// slabs y0 .. y0 + Y - 1 of the global slab; y0 enters the wall fold, and
+// the neighbouring shards' boundary slabs arrive as ghost planes (cap, 1,
+// X, Z) of x, y and z: the ring takes slab -1 and slab Y from them instead
+// of treating them as empty, and compacts them as it compacts its own
+// slabs. The TPU kernel evaluates the top ghost slab's pairs self-side only
+// because of its Newton-3 slab spill (pallas_grid3d.py:178-202); here every
+// particle sums its own force, so a ghost slab is only read, like any
+// neighbour slab, and a shard's sums equal the single-device kernel's. The
+// shard inputs are a template parameter (SHARD): the single-device call
+// launches the instance without them, which compiles to the kernel as it
+// was before them.
 //
 // Numerics. Constants arrive as the float32 values the plain twin rounds.
 // The repulsive coefficient's rsqrtf may differ from torch.rsqrt by an ulp,
@@ -110,15 +124,23 @@ struct Tile3 {
   int tx, tz, seg;  // own bins in x and z; y-slabs a block walks
 };
 
+// A shard's ghost slabs: x, y and z of slab -1 (top) and of slab Y
+// (bottom), each [cap][X][Z]; null pointers where the slab is empty.
+struct Ghost3 {
+  const float *tx, *ty, *tz, *bx, *by, *bz;
+  int y0;  // global index of the planes' slab 0
+};
+
 __device__ __forceinline__ float r2_of(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
 }
 
-template <Law LAW>
+// SHARD: K3 with a y offset and ghost slabs.
+template <Law LAW, bool SHARD>
 __global__ void __launch_bounds__(ppsim::kTileThreads)
 grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
-                  Tile3 t, PairParams pp, float dt, float L) {
+                  Tile3 t, Ghost3 gh, PairParams pp, float dt, float L) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int HX = t.tx + 2, HZ = t.tz + 2, HB = HX * HZ, OB = t.tx * t.tz;
   const TileLayout lay = ppsim::tile_layout(3, g.cap, HB, OB);
@@ -154,20 +176,40 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
   // a bin is copied if it can be a neighbour, or is an own bin
   const bool wanted = in_array && (phys || interior);
 
+  // slabs held: the planes' own, and the ghost slabs -1 and Y where given
+  auto held = [&](int yy) {
+    return (yy >= 0 && yy < g.Y) ||
+           (SHARD && ((yy == -1 && gh.tx) || (yy == g.Y && gh.bx)));
+  };
   const float* fin[3] = {in.x, in.y, in.z};
   auto issue = [&](int yy) {
-    if (yy < 0 || yy >= g.Y || part >= parts || !wanted) return;
+    if (!held(yy) || part >= parts || !wanted) return;
     float* c = reinterpret_cast<float*>(buf(yy));
-    const int64_t gb = ((int64_t)yy * g.X + gx) * g.Z + gz;
+    if (!SHARD || (yy >= 0 && yy < g.Y)) {
+      const int64_t gb = ((int64_t)yy * g.X + gx) * g.Z + gz;
 #pragma unroll
-    for (int q = 0; q < 3; ++q)
+      for (int q = 0; q < 3; ++q)
+        for (int s = part; s < cap; s += parts)
+          ppsim::cp_async4(c + (q * cap + s) * HB + h, fin[q] + s * plane + gb);
+      return;
+    }
+    // a ghost slab, slot stride X * Z (pointers picked one by one: a struct
+    // picked by reference would be copied to local memory)
+    const bool top = yy < 0;
+    const int64_t xz = (int64_t)g.X * g.Z, gb = (int64_t)gx * g.Z + gz;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float* src = q == 0 ? (top ? gh.tx : gh.bx)
+                                : (q == 1 ? (top ? gh.ty : gh.by)
+                                          : (top ? gh.tz : gh.bz));
       for (int s = part; s < cap; s += parts)
-        ppsim::cp_async4(c + (q * cap + s) * HB + h, fin[q] + s * plane + gb);
+        ppsim::cp_async4(c + (q * cap + s) * HB + h, src + s * xz + gb);
+    }
   };
   auto compact = [&](int yy) {
     if (tid >= HB) return;
     unsigned char* b = buf(yy);
-    const bool loaded = yy >= 0 && yy < g.Y && wanted;
+    const bool loaded = held(yy) && wanted;
     int k = 0;
     uint32_t dead = 0;
     if (loaded)
@@ -247,7 +289,7 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
     __syncthreads();
     const float* c0 = reinterpret_cast<const float*>(cur);
 
-    const float yo = __fmul_rn((float)y, g.bsy);
+    const float yo = __fmul_rn((float)((SHARD ? gh.y0 : 0) + y), g.bsy);
     for (int p = tid; p < total; p += blockDim.x) {
       const int e = plist[p];
       const int ob = e >> 5, k = e & 31;
@@ -339,15 +381,18 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
 
 template <Law LAW>
 int launch(const Fields& in, const Outs& out, float* sp, const Geo3& g,
-           const Tile3& t, int threads, int blocks, int smem,
-           const PairParams& pp, float dt, float L, cudaStream_t s) {
-  auto kernel = grid3_step_kernel<LAW>;
+           const Tile3& t, const Ghost3& gh, int threads, int blocks,
+           int smem, const PairParams& pp, float dt, float L,
+           cudaStream_t s) {
+  const bool shard = gh.y0 != 0 || gh.tx || gh.bx;
+  auto kernel = shard ? grid3_step_kernel<LAW, true>
+                      : grid3_step_kernel<LAW, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<blocks, threads, smem, s>>>(in, out, sp, g, t, pp, dt, L);
+  kernel<<<blocks, threads, smem, s>>>(in, out, sp, g, t, gh, pp, dt, L);
   return (int)cudaGetLastError();
 }
 
@@ -356,16 +401,21 @@ int launch(const Fields& in, const Outs& out, float* sp, const Geo3& g,
 extern "C" {
 
 // Inputs x, y, z, vx, vy, vz; outputs likewise; sp the (Y, X, Z) speed
-// plane. law 0 = repulsive, 1 = Lennard-Jones. The launch plan (tile tx x
+// plane. law 0 = repulsive, 1 = Lennard-Jones. A shard passes the global
+// index y0 of its slab 0 and its ghost slabs (gtx, gty, gtz: slab -1; gbx,
+// gby, gbz: slab Y; each [cap][X][Z]); null ghosts count as empty slabs, and
+// the three of one side come together or not at all. The launch plan (tile tx x
 // tz, segment length, threads, blocks, shared bytes) must be the one
 // cuda_grid3.step3_plan gives for this shape; anything else returns
 // cudaErrorInvalidValue. Returns cudaGetLastError() after the launch
 // (0 = launched). cap <= 32.
 int ppsim_grid3_step(const float* x, const float* y, const float* z,
                      const float* vx, const float* vy, const float* vz,
+                     const float* gtx, const float* gty, const float* gtz,
+                     const float* gbx, const float* gby, const float* gbz,
                      float* xo, float* yo, float* zo, float* vxo, float* vyo,
                      float* vzo, float* sp, int device, int cap,
-                     int Y, int X, int Z, int xs, int zs, int law, int tx,
+                     int Y, int X, int Z, int y0, int xs, int zs, int law, int tx,
                      int tz, int seg, int threads, int blocks, int smem,
                      float bsx, float bsy, float bsz, float c2, float cutoff,
                      float mr2, float inv_mass, float sig2, float lj_k,
@@ -379,6 +429,8 @@ int ppsim_grid3_step(const float* x, const float* y, const float* z,
       ob > 2048 || blocks != nblocks ||
       smem != ppsim::tile_layout(3, cap, hb, ob).bytes)
     return (int)cudaErrorInvalidValue;
+  if (!gtx != !gty || !gtx != !gtz || !gbx != !gby || !gbx != !gbz)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -386,13 +438,14 @@ int ppsim_grid3_step(const float* x, const float* y, const float* z,
   const Outs out{xo, yo, zo, vxo, vyo, vzo};
   const Geo3 g{cap, Y, X, Z, xs, zs, bsx, bsy, bsz};
   const Tile3 t{tx, tz, seg};
+  const Ghost3 gh{gtx, gty, gtz, gbx, gby, gbz, y0};
   const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
   if (law == (int)Law::kRepulsive)
-    return launch<Law::kRepulsive>(in, out, sp, g, t, threads, blocks, smem,
-                                   pp, dt, L, s);
+    return launch<Law::kRepulsive>(in, out, sp, g, t, gh, threads, blocks,
+                                   smem, pp, dt, L, s);
   if (law == (int)Law::kLJ)
-    return launch<Law::kLJ>(in, out, sp, g, t, threads, blocks, smem, pp, dt,
-                            L, s);
+    return launch<Law::kLJ>(in, out, sp, g, t, gh, threads, blocks, smem, pp,
+                            dt, L, s);
   return (int)cudaErrorInvalidValue;
 }
 

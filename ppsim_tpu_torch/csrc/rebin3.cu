@@ -24,6 +24,18 @@
 //      at y-1..y+1 and the count planes at y-1..y+2, plus the [alive_post,
 //      resid] monitor planes. Neighbours along y are read from device memory
 //      (L1/L2 hits across neighbouring threads).
+// Shards (the sharded engine, ops/cuda_rebin3.py). A shard's planes are
+// y-slabs y0 .. y0 + Y - 1 of the global slab. K4's passes are slab-local,
+// so it takes y0 alone (the y direction of its count planes). K5 reads
+// fields at y-1..y+1 and the count planes at y-1..y+2; a shard passes the
+// xz-settled fields of slabs -1 and Y and the count planes [m-, alive] of
+// slab -1 and of slabs Y and Y+1, which take the place of the empty slabs
+// and zero counts outside the planes. This equals the JAX package's shard
+// route (both kernels on the strip extended by two ghost slabs a side,
+// sharded_grid3d.py:208-230) without running K4 on a neighbour's slabs.
+// The shard inputs are a template parameter (SHARD): the single-device call
+// launches the instance without them.
+//
 // Both evaluate the acceptance predicate of grid3d_ops._axis_pass
 // (slab_rebin.cuh pass_moves) from the pre-pass state on both sides of each
 // transfer, so there are no atomics and no ordering between threads on the
@@ -63,20 +75,34 @@ struct Geo3 {
 
 // K4, held to 2 blocks an SM: ptxas then keeps its values in registers;
 // left to fit the 3 blocks its shared memory allows, it spilled and ran
-// ~15% slower on the H100's stretch slab (PERF.md).
+// ~15% slower on the H100's stretch slab (PERF.md). SHARD: the instance
+// with a y offset.
+template <bool SHARD>
 __global__ void __launch_bounds__(ppsim::kTileThreads, 2)
 rebin3_xz_kernel(const PlanesC<7> in, const Planes<7> out,
                  int* __restrict__ cnt, const ppsim::RebinGeo g, const int T,
                  const int seg) {
-  ppsim::rebin_tile<7>(in, out, cnt, g, T, seg);
+  ppsim::rebin_tile<7, SHARD>(in, out, cnt, g, T, seg);
 }
 
+// A shard's ghost slabs for K5: the xz-settled fields of slab -1 (top) and
+// slab Y (bottom), [cap][X][Z] each; the count planes [m-, alive] of slab
+// -1, [2][X][Z], and of slabs Y and Y+1, [2][2][X][Z]. Null pids and
+// counts: no ghosts.
+struct SlabGhosts {
+  PlanesC<7> top, bot;
+  const int *ctop, *cbot;
+  int y0;  // global index of the planes' slab 0
+};
+
 // K5: y pass from the xz-settled slab and its count planes, plus the
-// post-rebin monitor planes post = [alive_post, resid].
+// post-rebin monitor planes post = [alive_post, resid]. SHARD: the instance
+// with a y offset and ghost slabs.
+template <bool SHARD>
 __global__ void __launch_bounds__(128)
 rebin3_y_kernel(PlanesC<7> in, const int* __restrict__ cnt, Planes<7> out,
                 int* __restrict__ post, Geo3 g, int evac, float bsy,
-                float invx, float invy, float invz) {
+                float invx, float invy, float invz, SlabGhosts gh) {
   const int64_t plane = (int64_t)g.Y * g.X * g.Z;
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= plane) return;
@@ -84,16 +110,28 @@ rebin3_y_kernel(PlanesC<7> in, const int* __restrict__ cnt, Planes<7> out,
   const int x = (int)((b / g.Z) % g.X);
   const int y = (int)(b / ((int64_t)g.X * g.Z));
   const int64_t step = (int64_t)g.X * g.Z;
+  const int64_t bxz = b - y * step;  // the bin's index in a ghost slab
+  const int gy = (SHARD ? gh.y0 : 0) + y;
   Masks mm, mp;
-  const Masks m0 = masks_of(in.f[1], in.pid, plane, b, g.cap, y, g.ys, invy);
+  const Masks m0 = masks_of(in.f[1], in.pid, plane, b, g.cap, gy, g.ys, invy);
   if (y > 0)
-    mm = masks_of(in.f[1], in.pid, plane, b - step, g.cap, y - 1, g.ys, invy);
+    mm = masks_of(in.f[1], in.pid, plane, b - step, g.cap, gy - 1, g.ys, invy);
+  else if (SHARD && gh.top.pid)
+    mm = masks_of(gh.top.f[1], gh.top.pid, step, bxz, g.cap, gy - 1, g.ys, invy);
   if (y + 1 < g.Y)
-    mp = masks_of(in.f[1], in.pid, plane, b + step, g.cap, y + 1, g.ys, invy);
-  // budgets and offsets from the count planes (0 off the array)
+    mp = masks_of(in.f[1], in.pid, plane, b + step, g.cap, gy + 1, g.ys, invy);
+  else if (SHARD && gh.bot.pid)
+    mp = masks_of(gh.bot.f[1], gh.bot.pid, step, bxz, g.cap, gy + 1, g.ys, invy);
+  // budgets and offsets from the count planes (0 off the array, the ghost
+  // slabs' planes outside a shard)
   auto at = [&](int which, int dy) {
     const int yv = y + dy;
-    return (yv >= 0 && yv < g.Y) ? cnt[which * plane + b + dy * step] : 0;
+    if (yv >= 0 && yv < g.Y) return cnt[which * plane + b + dy * step];
+    if constexpr (SHARD) {
+      if (yv < 0) return gh.ctop ? gh.ctop[which * step + bxz] : 0;
+      return gh.cbot ? gh.cbot[(which * 2 + yv - g.Y) * step + bxz] : 0;
+    }
+    return 0;
   };
   const PassMoves pm =
       ppsim::pass_moves(mm, m0, mp, g.cap - at(1, -1), g.cap - at(1, 0),
@@ -115,18 +153,35 @@ rebin3_y_kernel(PlanesC<7> in, const int* __restrict__ cnt, Planes<7> out,
       out.f[k][ti] = k == 1 ? __fsub_rn(in.f[k][si], dbs) : in.f[k][si];
     out.pid[ti] = in.pid[si];
   };
+  // an entrant from a ghost slab, slot stride X * Z (pointers picked one by
+  // one: a struct picked by reference would be copied to local memory)
+  auto enter_ghost = [&](int to, int from, bool top, float dbs) {
+    const int64_t ti = to * plane + b, si = from * step + bxz;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const float* f = top ? gh.top.f[k] : gh.bot.f[k];
+      out.f[k][ti] = k == 1 ? __fsub_rn(f[si], dbs) : f[si];
+    }
+    out.pid[ti] = (top ? gh.top.pid : gh.bot.pid)[si];
+  };
+  const bool ghost_hi = SHARD && y + 1 == g.Y, ghost_lo = SHARD && y == 0;
   const uint32_t empty = ~m0.alive & cap_mask(g.cap);
-  ppsim::stream(pm.in_hi, empty,
-                [&](int to, int from) { enter(to, from, b + step, -bsy); });
+  ppsim::stream(pm.in_hi, empty, [&](int to, int from) {
+    if (ghost_hi) enter_ghost(to, from, false, -bsy);
+    else enter(to, from, b + step, -bsy);
+  });
   ppsim::stream(pm.in_lo, empty & ~first_bits(empty, pm.off_lo),
-                [&](int to, int from) { enter(to, from, b - step, bsy); });
+                [&](int to, int from) {
+                  if (ghost_lo) enter_ghost(to, from, true, bsy);
+                  else enter(to, from, b - step, bsy);
+                });
   int alive = 0, resid = 0;
   for (int s = 0; s < g.cap; ++s) {
     const int64_t i = s * plane + b;
     if (out.pid[i] < 0) continue;
     ++alive;
     const int dx = dir1(out.f[0][i], x, g.xs, invx);
-    const int dy = dir1(out.f[1][i], y, g.ys, invy);
+    const int dy = dir1(out.f[1][i], gy, g.ys, invy);
     const int dz = dir1(out.f[2][i], z, g.zs, invz);
     resid += (dx != 0 || dy != 0 || dz != 0) ? 1 : 0;
   }
@@ -139,7 +194,8 @@ rebin3_y_kernel(PlanesC<7> in, const int* __restrict__ cnt, Planes<7> out,
 extern "C" {
 
 // K4: slab in (xl yl zl vx vy vz pid), xz-settled out, counts cnt (5, Y, X,
-// Z) = [m-, alive, m+, far_pre, alive_pre]. bs* are the float32 bin sides,
+// Z) = [m-, alive, m+, far_pre, alive_pre]; y0 the global index of slab 0
+// (a shard's offset, 0 on one device). bs* are the float32 bin sides,
 // inv* = float32(1.0 / bs*). The launch plan (tile width along z, segment
 // along x, threads, blocks, shared bytes) must be the one
 // cuda_rebin3.rebin3_plan gives for this shape; anything else returns
@@ -150,41 +206,56 @@ int ppsim_rebin3_inplane(const float* x, const float* y, const float* z,
                          const int* pid, float* ox, float* oy, float* oz,
                          float* ovx, float* ovy, float* ovz, int* opid,
                          int* cnt, int device, int cap, int Y, int X, int Z,
-                         int ys, int xs, int zs, int evac, int tile, int seg,
+                         int y0, int ys, int xs, int zs, int evac, int tile, int seg,
                          int threads, int blocks, int smem, float bsx,
                          float bsz, float invx, float invy, float invz,
                          void* stream) {
   const ppsim::RebinGeo g{cap, Y, X, Z, ys, xs, zs, evac, bsx, bsz,
-                          {invx, invy, invz}};
+                          {invx, invy, invz}, 0, y0};
   if (!ppsim::rebin_plan_ok(7, g, tile, seg, threads, blocks, smem))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return ppsim::launch_rebin_tile<7>(
-      rebin3_xz_kernel, PlanesC<7>{{x, y, z, vx, vy, vz}, pid},
+      y0 != 0 ? rebin3_xz_kernel<true> : rebin3_xz_kernel<false>, PlanesC<7>{{x, y, z, vx, vy, vz}, pid},
       Planes<7>{{ox, oy, oz, ovx, ovy, ovz}, opid}, cnt, g, tile, seg,
       threads, blocks, smem, (cudaStream_t)stream);
 }
 
 // K5: xz-settled slab in and its counts cnt (first two planes [m-, alive]
-// read), final slab out, post (2, Y, X, Z) = [alive_post, resid].
+// read), final slab out, post (2, Y, X, Z) = [alive_post, resid]. A shard
+// passes y0 and its ghost slabs: t* the fields of slab -1 and b* of slab Y
+// ([cap][X][Z] each), ctop the counts [m-, alive] of slab -1 ([2][X][Z]),
+// cbot of slabs Y and Y+1 ([2][2][X][Z]); all four of tpid, bpid, ctop and
+// cbot null (no ghosts) or none.
 int ppsim_rebin3_ypass(const float* x, const float* y, const float* z,
                        const float* vx, const float* vy, const float* vz,
-                       const int* pid, const int* cnt, float* ox, float* oy,
-                       float* oz, float* ovx, float* ovy, float* ovz,
-                       int* opid, int* post, int device, int cap, int Y,
-                       int X, int Z, int ys, int xs, int zs, int evac,
-                       float bsy, float invx, float invy, float invz,
-                       void* stream) {
+                       const int* pid, const int* cnt, const float* tx,
+                       const float* ty, const float* tz, const float* tvx,
+                       const float* tvy, const float* tvz, const int* tpid,
+                       const float* bx, const float* by, const float* bz,
+                       const float* bvx, const float* bvy, const float* bvz,
+                       const int* bpid, const int* ctop, const int* cbot,
+                       float* ox, float* oy, float* oz, float* ovx,
+                       float* ovy, float* ovz, int* opid, int* post,
+                       int device, int cap, int Y, int X, int Z, int y0,
+                       int ys, int xs, int zs, int evac, float bsy,
+                       float invx, float invy, float invz, void* stream) {
   if (cap < 1 || cap > 32) return (int)cudaErrorInvalidValue;
+  if (!tpid != !bpid || !tpid != !ctop || !tpid != !cbot)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Geo3 g{cap, Y, X, Z, ys, xs, zs};
+  const SlabGhosts gh{PlanesC<7>{{tx, ty, tz, tvx, tvy, tvz}, tpid},
+                      PlanesC<7>{{bx, by, bz, bvx, bvy, bvz}, bpid}, ctop,
+                      cbot, y0};
   const unsigned blocks = (unsigned)(((int64_t)Y * X * Z + 127) / 128);
-  rebin3_y_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+  auto kernel = (y0 != 0 || tpid) ? rebin3_y_kernel<true> : rebin3_y_kernel<false>;
+  kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
       PlanesC<7>{{x, y, z, vx, vy, vz}, pid}, cnt,
       Planes<7>{{ox, oy, oz, ovx, ovy, ovz}, opid}, post, g, evac, bsy, invx,
-      invy, invz);
+      invy, invz, gh);
   return (int)cudaGetLastError();
 }
 

@@ -42,9 +42,12 @@
 // first, the +1 stream from the -1 movers' count on. A slot nobody touches
 // keeps its input values, as in the twins.
 //
-// Shards (2D only: K2 in the sharded engine). A shard's rows are global rows
-// w0 .. w0 + W - 1: w0 enters every use of a row index as a global one (the
-// clamp at the physical edge, the count planes). The walk of row w reads
+// Shards (K2 and K4 in the sharded engines). 3D: the passes are slab-local,
+// so a shard of y-slabs y0 .. y0 + NY - 1 needs no ghosts; y0 enters the y
+// direction of the count planes [m-, alive, m+] (the clamp at the physical
+// edge), and far_pre, a raw drift, reads no index. 2D: a shard's rows are
+// global rows w0 .. w0 + W - 1: w0 enters every use of a row index as a
+// global one (the clamp at the physical edge, the count planes). The walk of row w reads
 // masks at rows w-1..w+2 and fields at w-1..w+1, so at a shard's first and
 // last segment the ring takes row -1 from the top ghosts (every plane) and
 // rows W and W+1 from the bottom ghosts (row W of every plane; row W+1 of
@@ -127,7 +130,8 @@ struct RebinGeo {
   int evac;
   float bsw, bss;  // bin sides along the walked and the strip axis
   float inv[3];    // float32(1 / bin side) of coordinate fields 0..NC-1
-  int w0;          // global index of walked row 0 (a shard's row offset)
+  int w0;          // global index of walked row 0 (a 2D shard's row offset)
+  int y0;          // global index of y-slab 0 (a 3D shard's slab offset)
 };
 
 // A shard's ghost rows (2D): top, row -1 of every plane, [cap][S] each;
@@ -181,6 +185,7 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
   constexpr int NC = (NF - 1) / 2;  // coordinate fields
   constexpr int FS = NC - 1;        // the strip axis's coordinate field
   constexpr bool THREE = NF == 7;
+  constexpr bool ROWS = SHARD && !THREE;  // ghost rows of the walked axis
   extern __shared__ __align__(16) unsigned char smem[];
   const RebinLayout lay = rebin_layout(NF, g.cap, T);
   const int cap = g.cap, HB = lay.hb, tid = threadIdx.x;
@@ -221,15 +226,15 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
   // rows held: the array's own, and the ghost rows -1, W and W+1 if given
   auto held = [&](int w) {
     return (w >= 0 && w < g.W) ||
-           (SHARD && ((w == -1 && gh.top.pid) ||
+           (ROWS && ((w == -1 && gh.top.pid) ||
                       ((w == g.W || w == g.W + 1) && gh.bot.pid)));
   };
   // the walked axis's global index of local row w
-  auto gw = [&](int w) { return (SHARD ? g.w0 : 0) + w; };
+  auto gw = [&](int w) { return (ROWS ? g.w0 : 0) + w; };
   auto issue = [&](int w) {
     if (!held(w) || part >= parts || !in_array) return;
     unsigned char* b = buf(w);
-    if (!SHARD || (w >= 0 && w < g.W)) {
+    if (!ROWS || (w >= 0 && w < g.W)) {
       const int64_t gb = ybase + (int64_t)w * g.S + gs;
       for (int s = part; s < cap; s += parts) {
         const int64_t i = s * plane + gb;
@@ -418,7 +423,7 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
       out.pid[i] = pid;
       if (pid < 0) continue;
       if constexpr (THREE) {
-        const int dy = dir1(v[1], yi, g.ny, g.inv[1]);
+        const int dy = dir1(v[1], (SHARD ? g.y0 : 0) + yi, g.ny, g.inv[1]);
         if (dy < 0) atomicAdd(&mon[o], 1);
         if (dy > 0) atomicAdd(&mon[T + o], 1);
       } else {

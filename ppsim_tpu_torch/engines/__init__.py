@@ -8,7 +8,9 @@
   kernels (the JAX package's ``grid3d`` / ``pallas3d``);
 - ``sharded_grid`` — the 2D slab-grid engine split into row strips over a
   shard mesh (``engines/mesh.py``: in one process, or one process a shard
-  over ``torch.distributed``), on the kernels' shard forms.
+  over ``torch.distributed``), on the kernels' shard forms;
+- ``sharded_grid3d`` — the 3D slab-grid engine split into y strips over the
+  same mesh, on the shard forms of the 3D kernels.
 """
 
 from ppsim_tpu_torch.engines.base import (
@@ -17,5 +19,6 @@ from ppsim_tpu_torch.engines.base import (
 from ppsim_tpu_torch.engines import grid as _grid  # noqa: F401  (registration)
 from ppsim_tpu_torch.engines import grid3d as _grid3d  # noqa: F401  (registration)
 from ppsim_tpu_torch.engines import sharded_grid as _sharded_grid  # noqa: F401  (registration)
+from ppsim_tpu_torch.engines import sharded_grid3d as _sharded_grid3d  # noqa: F401  (registration)
 
 __all__ = ["Engine", "RunResult", "engine_names", "get_engine", "register_engine"]

@@ -1,6 +1,7 @@
-"""The shard transport of the sharded engines: a 1-D mesh of P row strips
-(the JAX package's ``shard_map`` over a ``Mesh(devices, ("x",))`` with
-``lax.ppermute`` / ``psum`` / ``pmax``, ``engines/sharded_grid.py:114-124``).
+"""The shard transport of the sharded engines: a 1-D mesh of P row (2D) or
+y-slab (3D) strips (the JAX package's ``shard_map`` over a ``Mesh(devices,
+("x",))`` with ``lax.ppermute`` / ``psum`` / ``pmax``,
+``engines/sharded_grid.py:114-124``).
 
 Two implementations of one interface. An engine holds the shards of its
 process (``mesh.shards``: their global indices, 0..P-1 in all) and calls
@@ -9,11 +10,12 @@ the mesh with one tensor per local shard:
 - :meth:`from_above` / :meth:`from_below` — each shard receives its
   neighbour's tensor (from shard d-1 / d+1); the edge shard gets ``fill``;
 - :meth:`halo` — both ghost blocks of a shard's planes: the last ``top_h``
-  rows of the shard above and the first ``bot_h`` rows of the shard below;
+  rows of the shard above and the first ``bot_h`` rows of the shard below
+  (the strip axis is dim 1: (k, R, C) planes in 2D, (k, Y, X, Z) in 3D);
 - :meth:`psum` / :meth:`pmax` — the sum / max over all shards, the same
   tensor in every process;
 - :meth:`split` / :meth:`gather` — a global slab plane to the local shards
-  (along rows) and back.
+  (along dim 1) and back.
 
 :class:`LocalMesh` holds all P shards in one process (the counterpart of
 the JAX CLI's ``--cpu-mesh N``): each shard is a tensor of its own, and
@@ -32,7 +34,9 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["LocalMesh", "DistMesh"]
+from ppsim_tpu_torch.engines.base import resolve_device
+
+__all__ = ["LocalMesh", "DistMesh", "mesh_for", "field_halos"]
 
 
 def _fresh(t: torch.Tensor) -> torch.Tensor:
@@ -76,9 +80,10 @@ class LocalMesh:
 
     def halo(self, fs: Sequence[torch.Tensor], fill, top_h: int,
              bot_h: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """``(top, bot)`` ghost blocks of each shard's (k, R, C) planes:
-        ``top`` the last ``top_h`` rows of the shard above, ``bot`` the first
-        ``bot_h`` rows of the shard below (``fill`` at the edges)."""
+        """``(top, bot)`` ghost blocks of each shard's (k, R, ...) planes
+        (strips along dim 1): ``top`` the last ``top_h`` rows of the shard
+        above, ``bot`` the first ``bot_h`` rows of the shard below (``fill``
+        at the edges)."""
         top = self.from_above([f[:, -top_h:] for f in fs], fill)
         bot = self.from_below([f[:, :bot_h] for f in fs], fill)
         return list(zip(top, bot))
@@ -90,7 +95,7 @@ class LocalMesh:
         return torch.stack(list(xs)).amax(dim=0)
 
     def split(self, f: torch.Tensor) -> List[torch.Tensor]:
-        """The shards' rows of a (k, P * R, C) plane, each in its own buffer."""
+        """The shards' rows of a (k, P * R, ...) plane, each in its own buffer."""
         return [_fresh(t) for t in f.chunk(self.size, dim=1)]
 
     def gather(self, fs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -189,3 +194,19 @@ class DistMesh:
         parts = [torch.empty_like(f) for _ in range(self.size)]
         dist.all_gather(parts, _fresh(f))
         return torch.cat(parts, dim=1)
+
+
+def mesh_for(device, shards=None):
+    """A sharded engine's default mesh: :meth:`DistMesh.from_env` where
+    ``WORLD_SIZE`` is set (as under ``torchrun``) and no ``shards`` are
+    asked for, else ``LocalMesh(shards)`` (one shard by default) on
+    ``device``."""
+    if shards is None and os.environ.get("WORLD_SIZE"):
+        return DistMesh.from_env(device)
+    return LocalMesh(1 if shards is None else shards, resolve_device(device))
+
+
+def field_halos(mesh, states, fills, top_h: int, bot_h: int, fields):
+    """Per field k of ``fields``, the (top, bot) ghost blocks of field k of
+    every local shard's slab state (``fills[k]`` at the edges)."""
+    return [mesh.halo([s[k] for s in states], fills[k], top_h, bot_h) for k in fields]

@@ -27,13 +27,12 @@ scheduled one of :class:`~ppsim_tpu_torch.engines.grid.GridEngine.step`.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import torch
 
-from ppsim_tpu_torch.engines.base import register_engine, resolve_device
+from ppsim_tpu_torch.engines.base import register_engine
 from ppsim_tpu_torch.engines.grid import GridCarry, GridEngine, seed_pack_monitors
-from ppsim_tpu_torch.engines.mesh import DistMesh, LocalMesh
+from ppsim_tpu_torch.engines.mesh import field_halos, mesh_for
 from ppsim_tpu_torch.ops import grid_ops
 from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda
 from ppsim_tpu_torch.ops.cuda_rebin import (
@@ -43,7 +42,19 @@ from ppsim_tpu_torch.ops.grid_ops import SLAB_FILLS, RebinMonitors, SlabState
 from ppsim_tpu_torch.physics import accel_fn_for
 from ppsim_tpu_torch.state import ParticleState
 
-__all__ = ["ShardedGridEngine"]
+__all__ = ["ShardedGridEngine", "reduce_monitors"]
+
+
+def reduce_monitors(mesh, cnt) -> RebinMonitors:
+    """RebinMonitors from every local strip's [far_pre, alive_pre,
+    alive_post, resid] planes (a stack of 4, planes of any shape): int64
+    sums over the mesh (a float32 sum loses integer exactness past 2^24),
+    occupancy the max over the mesh."""
+    sums = mesh.psum([c.flatten(1).sum(dim=1, dtype=torch.int64) for c in cnt])
+    occ = mesh.pmax([c[2].max() for c in cnt])
+    far, before, after, resid = sums
+    return RebinMonitors(occ.to(torch.int32), (before - after + far).to(torch.int32),
+                         resid.to(torch.int32))
 
 
 @register_engine
@@ -64,12 +75,7 @@ class ShardedGridEngine(GridEngine):
                  impl: str = "cuda"):
         if impl not in ("cuda", "plain"):
             raise ValueError(f"unknown sharded_grid impl {impl!r} (cuda | plain)")
-        if mesh is None:
-            if shards is None and os.environ.get("WORLD_SIZE"):
-                mesh = DistMesh.from_env(device)
-            else:
-                mesh = LocalMesh(1 if shards is None else shards,
-                                 resolve_device(device))
+        mesh = mesh_for(device, shards) if mesh is None else mesh
         super().__init__(config, device=mesh.device)
         self.mesh = mesh
         self.P = mesh.size
@@ -84,18 +90,13 @@ class ShardedGridEngine(GridEngine):
         """Global row of shard ``d``'s first row."""
         return d * self.rows_local
 
-    def _halos(self, shards, top_h, bot_h, fields=range(5)):
-        """Per field, the (top, bot) ghost blocks of every local shard."""
-        return [self.mesh.halo([s[k] for s in shards], SLAB_FILLS[k], top_h, bot_h)
-                for k in fields]
-
     # ---- phases ------------------------------------------------------------
     def move_phase(self, shards):
         """Force + integrate on every strip; returns (shards, max_speed)."""
         mesh, cfg, geom = self.mesh, self.config, self.geom
         if self._phase_disable == "move":
             return shards, torch.zeros((), dtype=torch.float32, device=self.device)
-        gx, gy = self._halos(shards, 1, 1, fields=(0, 1))
+        gx, gy = field_halos(mesh, shards, SLAB_FILLS, 1, 1, (0, 1))
         out, speed = [], []
         for s, d, (tx, bx), (ty, by) in zip(shards, mesh.shards, gx, gy):
             if self.impl == "plain":
@@ -132,7 +133,7 @@ class ShardedGridEngine(GridEngine):
             # its full neighbourhood (the JAX engine's _local_rebin_xla)
             rebin = (grid_ops.grid_rebin_axes if cfg.grid_rebin_mode == "axes"
                      else grid_ops.grid_rebin)
-            ghosts = self._halos(shards, 2, 2)
+            ghosts = field_halos(mesh, shards, SLAB_FILLS, 2, 2, range(5))
             out, cnt = [], []
             for i, (s, r0) in enumerate(zip(shards, row0s)):
                 ext = SlabState(*(torch.cat([g[i][0], f, g[i][1]], 1)
@@ -153,25 +154,14 @@ class ShardedGridEngine(GridEngine):
             out, cnt = [r[0] for r in res], [r[1] for r in res]
         else:
             counts = [rebin_counts_cuda(s, geom, row0=r0) for s, r0 in zip(shards, row0s)]
-            fghosts = self._halos(shards, 1, 1)
+            fghosts = field_halos(mesh, shards, SLAB_FILLS, 1, 1, range(5))
             cghosts = mesh.halo(counts, 0, 2, 2)
             res = [rebin_shuffle_cuda(s, c, geom, evac, row0=r0,
                                       field_ghosts=[g[i] for g in fghosts],
                                       count_ghosts=cghosts[i])
                    for i, (s, c, r0) in enumerate(zip(shards, counts, row0s))]
             out, cnt = [r[0] for r in res], [r[1] for r in res]
-        return out, self._monitors(cnt)
-
-    def _monitors(self, cnt) -> RebinMonitors:
-        """RebinMonitors from every strip's [far_pre, alive_pre, alive_post,
-        resid] planes: int64 sums over the mesh (a float32 sum loses integer
-        exactness past 2^24), occupancy the max over the mesh."""
-        mesh = self.mesh
-        sums = mesh.psum([c.sum(dim=(1, 2), dtype=torch.int64) for c in cnt])
-        occ = mesh.pmax([c[2].max() for c in cnt])
-        far, before, after, resid = sums
-        return RebinMonitors(occ.to(torch.int32), (before - after + far).to(torch.int32),
-                             resid.to(torch.int32))
+        return out, reduce_monitors(mesh, cnt)
 
     # ---- protocol ------------------------------------------------------------
     def init_carry(self, state: ParticleState) -> GridCarry:

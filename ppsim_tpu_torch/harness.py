@@ -13,9 +13,12 @@ after ``torch.cuda.synchronize()``.
     python -m ppsim_tpu_torch -n 20971520 --ndim 3 --density 7e-6 \
         --force-law lj --dt 1e-4 -s 42 --engine cuda3d
     python -m ppsim_tpu_torch -n 20971520 -s 42 --engine sharded_grid --shards 4
+    python -m ppsim_tpu_torch -n 20971520 --ndim 3 --density 7e-6 \
+        --force-law lj --dt 1e-4 -s 42 --engine sharded_grid3d --shards 4
     torchrun --nproc-per-node 2 -m ppsim_tpu_torch -n 262144 --engine sharded_grid
 
-Under ``torchrun`` (``WORLD_SIZE`` set) ``sharded_grid`` runs one shard a
+Under ``torchrun`` (``WORLD_SIZE`` set) ``sharded_grid`` and
+``sharded_grid3d`` run one shard a
 process over ``torch.distributed`` (NCCL on the cards, gloo with ``--device
 cpu``); every process runs the same program and rank 0 alone prints and
 writes.
@@ -109,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "3D) or auto (reference in 2D, fast in 3D; a random "
                         "seed for -s 0)")
     p.add_argument("--shards", type=int, default=None, metavar="N",
-                   help="sharded_grid: N row strips held in this process "
+                   help="sharded_grid / sharded_grid3d: N row (y) strips "
+                        "held in this process "
                         "(the JAX CLI's --cpu-mesh N; default 1, or one "
                         "process a shard under torchrun)")
     p.add_argument("--metrics", type=str, default=None, help="append a JSONL metrics record")
@@ -211,8 +215,8 @@ def main(argv=None) -> int:
     engine_name = args.engine or ("cuda3d" if args.ndim == 3 else "cuda")
     options = {}
     if args.shards is not None:
-        if engine_name != "sharded_grid":
-            parser.error("--shards applies to --engine sharded_grid")
+        if engine_name not in ("sharded_grid", "sharded_grid3d"):
+            parser.error("--shards applies to --engine sharded_grid or sharded_grid3d")
         options["shards"] = args.shards
     try:
         engine = get_engine(engine_name, config, device=args.device, **options)

@@ -9,6 +9,14 @@ version. One kernel covers both TPU variants (``_step3_kernel`` and
 ``_step3_kernel_nospeed``, which exists only because of the TPU's VMEM): the
 speed plane is always emitted. The kernel is tiled like K1
 (``cuda_grid``): :func:`step3_plan` gives its launch plan.
+
+Both take a shard's inputs (the sharded engine,
+``engines/sharded_grid3d.py``): ``y0``, the global index of the planes'
+first y slab, and ``ghosts``, the neighbouring shards' boundary slabs
+``(top_xl, top_yl, top_zl, bot_xl, bot_yl, bot_zl)``, each (cap, 1, X, Z)
+float32 (the JAX package's layout), which take the place of the empty slabs
+above and below the planes. K3 is owner-computes, so a ghost slab is only
+read.
 """
 
 from __future__ import annotations
@@ -18,17 +26,23 @@ import torch
 from ppsim_tpu_torch import _build
 from ppsim_tpu_torch.ops.binning import BIG
 from ppsim_tpu_torch.ops.cuda_grid import (
-    MAX_CAP, SMEM_TWO_BLOCKS, TILE_THREADS, TilePlan, _check_planes, kernel_coef_of,
-    pair_args, segment, tile_smem,
+    MAX_CAP, SMEM_TWO_BLOCKS, TILE_THREADS, TilePlan, _check_planes, _ptrs,
+    check_ghosts, kernel_coef_of, pair_args, segment, tile_smem,
 )
 from ppsim_tpu_torch.ops.grid3d_ops import Geometry3S, grid3_force_xla, move3_planes
 from ppsim_tpu_torch.ops.grid_ops import f32
 
-__all__ = ["grid3_step_cuda", "grid3_step_plain", "step3_plan"]
+__all__ = ["grid3_step_cuda", "grid3_step_plain", "step3_plan", "slab3_shape"]
 
 # (x, z) tiles of K3, widest first; the plan takes the first whose block
 # leaves room for two blocks on an SM.
 _TILES3 = ((4, 16), (4, 8))
+
+
+def slab3_shape(geom: Geometry3S, planes):
+    """(cap, Y, X, Z) of slab planes: the y slabs are the planes' own (a
+    shard's slabs, or the geometry's padded slabs), x and z the geometry's."""
+    return geom.capacity, planes.shape[1], geom.xs_pad, geom.zs_pad
 
 
 def step3_plan(shape) -> TilePlan:
@@ -48,40 +62,55 @@ def step3_plan(shape) -> TilePlan:
 
 
 def grid3_step_plain(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
-                     mass, dt, size, law="repulsive", law_params=()):
+                     mass, dt, size, law="repulsive", law_params=(), y0=0,
+                     ghosts=None):
     """Plain twin of K3: ``grid3_force_xla`` with the kernels' pair
     arithmetic, then the move, returning ``(xl', yl', zl', vx', vy', vz',
     speed2)`` with ``speed2`` the (Y, X, Z) plane of per-bin max |v|^2. Slot
     aliveness comes from the position sentinel (dead slots hold exactly BIG),
-    as in the kernel and the TPU kernel."""
+    as in the kernel and the TPU kernel. With ``ghosts`` the force runs on
+    the planes extended by the ghost slabs and the interior is kept (the JAX
+    package's ``_local_plain_xla``); ``y0`` enters the wall fold."""
     coef_of = kernel_coef_of(law, cutoff, min_r, mass, law_params)
-    ax, ay, az = grid3_force_xla(xl, yl, zl, geom, coef_of)
+    if ghosts is None:
+        ax, ay, az = grid3_force_xla(xl, yl, zl, geom, coef_of)
+    else:
+        if len(ghosts) != 6:
+            raise ValueError(f"expected 6 ghost planes, got {len(ghosts)}")
+        ext = [torch.cat([top, f, bot], 1)
+               for f, top, bot in zip((xl, yl, zl), ghosts[:3], ghosts[3:])]
+        ax, ay, az = (a[:, 1:-1] for a in grid3_force_xla(*ext, geom, coef_of))
     *planes, speed2 = move3_planes(xl, yl, zl, vx, vy, vz, ax, ay, az,
-                                   xl < 0.5 * BIG, geom, dt, size)
+                                   xl < 0.5 * BIG, geom, dt, size, y0)
     return (*planes, speed2.amax(dim=0))
 
 
 def grid3_step_cuda(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
-                    mass, dt, size, law="repulsive", law_params=()):
+                    mass, dt, size, law="repulsive", law_params=(), y0=0,
+                    ghosts=None):
     """Fused step, same contract as :func:`grid3_step_plain`. CUDA tensors
-    launch K3 (``grid3_step_cuda.launches`` counts the launches); CPU
-    tensors run the plain twin."""
+    launch K3 (``grid3_step_cuda.launches`` counts the launches; a shard's
+    inputs launch its SHARD instance); CPU tensors run the plain twin."""
     if xl.device.type == "cpu":
         return grid3_step_plain(xl, yl, zl, vx, vy, vz, geom, cutoff, min_r,
-                                mass, dt, size, law, law_params)
+                                mass, dt, size, law, law_params, y0, ghosts)
     planes = (xl, yl, zl, vx, vy, vz)
-    _check_planes(planes, geom.shape)
-    cap, Y, X, Z = geom.shape
+    shape = slab3_shape(geom, xl)
+    _check_planes(planes, shape)
+    cap, Y, X, Z = shape
+    if ghosts is not None:
+        check_ghosts(ghosts, [(cap, 1, X, Z)] * 6, xl.device)
     if cap > MAX_CAP:
         raise ValueError(f"capacity {cap} > {MAX_CAP}, the kernel's largest")
     law_id, *consts = pair_args(law, cutoff, min_r, mass, law_params)
-    plan = step3_plan(geom.shape)
+    plan = step3_plan(shape)
     outs = [torch.empty_like(xl) for _ in range(6)]
     speed2 = torch.empty((Y, X, Z), dtype=torch.float32, device=xl.device)
     lib = _build.kernels()
     err = lib.ppsim_grid3_step(
-        *(t.data_ptr() for t in (*planes, *outs, speed2)),
-        xl.device.index, cap, Y, X, Z, geom.xs, geom.zs, law_id, *plan.tile,
+        *(t.data_ptr() for t in planes), *_ptrs(ghosts, 6),
+        *(t.data_ptr() for t in (*outs, speed2)),
+        xl.device.index, cap, Y, X, Z, int(y0), geom.xs, geom.zs, law_id, *plan.tile,
         plan.seg, plan.threads, plan.blocks, plan.smem, f32(geom.bsx), f32(geom.bsy), f32(geom.bsz), *consts,
         f32(dt), f32(size), torch.cuda.current_stream(xl.device).cuda_stream)
     _build.check_launch(err, "grid3_step kernel")

@@ -292,10 +292,11 @@ def slab3_from_particles_spill(pos, vel, geom: Geometry3S, depth: float):
     return state, overflow, spill.sum().to(torch.int32)
 
 
-def _offsets(geom: Geometry3S, shape, device):
-    """Global (x, y, z) bin-origin offsets broadcast over ``shape``."""
+def _offsets(geom: Geometry3S, shape, device, y0=0):
+    """Global (x, y, z) bin-origin offsets broadcast over ``shape``; ``y0``
+    is the global index of the first y slab (a shard's offset)."""
     nd = len(shape)
-    y = _iota(shape, nd - 3, device).to(torch.float32) * f32(geom.bsy)
+    y = (y0 + _iota(shape, nd - 3, device)).to(torch.float32) * f32(geom.bsy)
     x = _iota(shape, nd - 2, device).to(torch.float32) * f32(geom.bsx)
     z = _iota(shape, nd - 1, device).to(torch.float32) * f32(geom.bsz)
     return x, y, z
@@ -372,11 +373,12 @@ def _reflect(local, off, v, L: float):
 
 
 def move3_planes(xl, yl, zl, vx, vy, vz, ax, ay, az, alive, geom: Geometry3S,
-                 dt, size):
+                 dt, size, y0=0):
     """Verlet + 3-axis wall reflection on slab planes (reference:
     part1/serial.cpp:44-61); empty slots stay at BIG with zero velocity.
     Returns the six planes and ``speed2``, the (cap, Y, X, Z) |v|^2 planes
-    (0 on empty slots)."""
+    (0 on empty slots). ``y0`` is the global index of the planes' first y
+    slab (a shard's offset): it enters the wall fold."""
     dtf = f32(dt)
     L = f32(size)
     vx = torch.where(alive, vx + ax * dtf, 0.0)
@@ -385,7 +387,7 @@ def move3_planes(xl, yl, zl, vx, vy, vz, ax, ay, az, alive, geom: Geometry3S,
     xl = xl + vx * dtf
     yl = yl + vy * dtf
     zl = zl + vz * dtf
-    xo, yo, zo = _offsets(geom, xl.shape, xl.device)
+    xo, yo, zo = _offsets(geom, xl.shape, xl.device, y0)
     xl, vx = _reflect(xl, xo, vx, L)
     yl, vy = _reflect(yl, yo, vy, L)
     zl, vz = _reflect(zl, zo, vz, L)
@@ -396,19 +398,22 @@ def move3_planes(xl, yl, zl, vx, vy, vz, ax, ay, az, alive, geom: Geometry3S,
     return xl, yl, zl, vx, vy, vz, speed2
 
 
-def grid3_move(state: Slab3State, accel, geom: Geometry3S, dt, size):
-    """Verlet + wall reflection on the 3D slab grid; returns
-    ``(new_state, max_speed scalar tensor)``."""
+def grid3_move(state: Slab3State, accel, geom: Geometry3S, dt, size, y0=0):
+    """Verlet + wall reflection on the 3D slab grid (``y0``: the global
+    index of the first y slab); returns ``(new_state, max_speed scalar
+    tensor)``."""
     *planes, speed2 = move3_planes(*state[:6], *accel, state.pid >= 0, geom,
-                                   dt, size)
+                                   dt, size, y0)
     return Slab3State(*planes, state.pid), torch.sqrt(speed2.max())
 
 
 # ------------------------------------------------------------------- rebin
-def slab3_dirs(state: Slab3State, geom: Geometry3S):
+def slab3_dirs(state: Slab3State, geom: Geometry3S, y0=0):
     """Per-slot movement direction per axis, clamped to one hop and to the
     physical grid, plus the far-move flag (a raw drift of more than one bin
-    on any axis) and aliveness. Empty slots get 0."""
+    on any axis) and aliveness. Empty slots get 0. ``y0`` is the global
+    index of the first y slab: the clamp at ``geom.ys`` reads global slabs
+    (``geom.ys`` stays physical where a sharded engine pads ``ys_pad``)."""
     alive = state.pid >= 0
     zero = torch.zeros((), dtype=torch.int32, device=state.xl.device)
 
@@ -422,28 +427,32 @@ def slab3_dirs(state: Slab3State, geom: Geometry3S):
     far = alive & ((dx_r.abs() > 1) | (dy_r.abs() > 1) | (dz_r.abs() > 1))
     shape, dev = dx_r.shape, dx_r.device
 
-    def clamp(d, dim, n_phys):
-        i = _iota(shape, dim, dev)
+    def clamp(d, dim, n_phys, i0=0):
+        i = i0 + _iota(shape, dim, dev)
         d = torch.clamp(d, -1, 1)
         d = torch.minimum(torch.maximum(d, -torch.clamp(i, max=1)),
                           torch.clamp(n_phys - 1 - i, max=1))
         return torch.where(alive, d, zero)
 
-    return (clamp(dy_r, 1, geom.ys), clamp(dx_r, 2, geom.xs),
+    return (clamp(dy_r, 1, geom.ys, y0), clamp(dx_r, 2, geom.xs),
             clamp(dz_r, 3, geom.zs), far, alive)
 
 
-def _axis_pass(state: Slab3State, geom: Geometry3S, evac_cap: int, axis: int):
+def _axis_pass(state: Slab3State, geom: Geometry3S, evac_cap: int, axis: int,
+               y0=0, counts_m=None):
     """One 1-D rebin pass along ``axis`` (0 = y, 1 = x, 2 = z): movers take
     one hop under the loss-free acceptance contract of
     ``grid_ops._axis_pass2`` (direction -1 first, ``evac_cap`` per direction,
     the destination's pre-pass free slots as budget; the e-th accepted
     entrant lands in the destination's empty slot of empty-rank off + e);
-    rejected movers stay. Returns the new state. Counts are int32."""
+    rejected movers stay. Returns the new state. Counts are int32. ``y0``:
+    the global index of the first y slab. ``counts_m``: the plane of -1
+    movers per bin, the offset input of the +1 stream, where the caller
+    holds it (by default counted from ``state``)."""
     cap = geom.capacity
     i32 = torch.int32
     bs = f32((geom.bsy, geom.bsx, geom.bsz)[axis])
-    dy, dx, dz, _, alive = slab3_dirs(state, geom)
+    dy, dx, dz, _, alive = slab3_dirs(state, geom, y0)
     adir = (dy, dx, dz)[axis]
 
     def shift(f, d, fill):
@@ -460,7 +469,8 @@ def _axis_pass(state: Slab3State, geom: Geometry3S, evac_cap: int, axis: int):
     is_empty = state.pid < 0
     empty_rank = torch.cumsum(is_empty.to(i32), dim=0, dtype=i32) - is_empty.to(i32)
 
-    counts_m = (alive & (adir == -1)).sum(dim=0, dtype=i32)
+    if counts_m is None:
+        counts_m = (alive & (adir == -1)).sum(dim=0, dtype=i32)
     off_of = {-1: torch.zeros_like(F), 1: shift(counts_m, 1, 0)}
     for d in (-1, 1):
         mask = alive & (adir == d)
@@ -494,20 +504,20 @@ def _axis_pass(state: Slab3State, geom: Geometry3S, evac_cap: int, axis: int):
     return Slab3State(*(torch.stack(o) for o in outs))
 
 
-def y_counts(state: Slab3State, geom: Geometry3S):
+def y_counts(state: Slab3State, geom: Geometry3S, y0=0):
     """int32 (3, Y, X, Z) planes ``[movers -1, alive, movers +1]`` of the
     y pass's directions (its acceptance inputs)."""
-    dy, _, _, _, alive = slab3_dirs(state, geom)
+    dy, _, _, _, alive = slab3_dirs(state, geom, y0)
     i32 = torch.int32
     return torch.stack([(dy == -1).sum(dim=0, dtype=i32),
                         alive.sum(dim=0, dtype=i32),
                         (dy == 1).sum(dim=0, dtype=i32)])
 
 
-def post_counts(state: Slab3State, geom: Geometry3S):
+def post_counts(state: Slab3State, geom: Geometry3S, y0=0):
     """int32 (2, Y, X, Z) planes ``[alive_post, resid]``: settled occupancy
     and the movers left after the rebin."""
-    dy, dx, dz, _, alive = slab3_dirs(state, geom)
+    dy, dx, dz, _, alive = slab3_dirs(state, geom, y0)
     i32 = torch.int32
     resid = alive & ((dy != 0) | (dx != 0) | (dz != 0))
     return torch.stack([alive.sum(dim=0, dtype=i32), resid.sum(dim=0, dtype=i32)])
@@ -525,15 +535,15 @@ def rebin3_monitors(far_pre, alive_pre, post) -> RebinMonitors:
                          resid.sum(dtype=torch.int64).to(torch.int32))
 
 
-def grid3_rebin_axes(state: Slab3State, geom: Geometry3S, evac_cap: int):
+def grid3_rebin_axes(state: Slab3State, geom: Geometry3S, evac_cap: int, y0=0):
     """Axis-factorized 3D rebin, x, z, then y pass (y last, as in the JAX
     package), with its monitors. Far movers are counted on the PRE-rebin
     state: each pass clamps to one hop, so afterwards a 2-bin drifter would
-    look benign."""
+    look benign. ``y0``: the global index of the first y slab."""
     i32 = torch.int32
-    _, _, _, far0, alive0 = slab3_dirs(state, geom)
+    _, _, _, far0, alive0 = slab3_dirs(state, geom, y0)
     for axis in (1, 2, 0):
-        state = _axis_pass(state, geom, evac_cap, axis)
+        state = _axis_pass(state, geom, evac_cap, axis, y0)
     return state, rebin3_monitors(far0.sum(dim=0, dtype=i32),
                                   alive0.sum(dim=0, dtype=i32),
-                                  post_counts(state, geom))
+                                  post_counts(state, geom, y0))

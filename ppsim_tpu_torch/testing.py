@@ -15,7 +15,7 @@ from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, SlabState
 __all__ = ["STRESS_GEOMETRY", "stress_slab", "STRESS_GEOMETRY3", "stress_slab3",
            "STEP_SLAB_KINDS", "step_slab", "REBIN_EDGE_GEOMETRY",
            "REBIN_EDGE_GEOMETRY3", "rebin_edge_slab", "SHARD_EDGE_GEOMETRY",
-           "shard_edge_slab"]
+           "shard_edge_slab", "SHARD_EDGE_GEOMETRY3", "shard_edge_slab3"]
 
 # 13 x 100 physical bins padded to 16 x 128, capacity 4: the JAX package's
 # contention geometry (tests/test_grid_ops.py).
@@ -283,3 +283,51 @@ def shard_edge_slab(geom: SlabGeometry, shards: int, seed: int = 0,
     pid = np.full(geom.shape, -1, np.int32)
     pid[live] = rng.permutation(n).astype(np.int32)
     return slab_state_from_numpy(*fields, pid, device=device)
+
+
+# 11 x 7 x 30 physical y, x, z bins in 12 x 8 x 32, capacity 4, anisotropic
+# bin sides: y strips of 6 slabs (P = 2) or 3 (P = 4), the last one ragged
+# (slab 11 is padding), as the 3D sharded engine pads y to P strips of
+# max(2, ceil(ys / P)) slabs.
+SHARD_EDGE_GEOMETRY3 = Geometry3S(ys=11, xs=7, zs=30, ys_pad=12, xs_pad=8, zs_pad=32,
+                                  capacity=4, bsy=0.05, bsx=0.04, bsz=0.03)
+
+
+def shard_edge_slab3(geom: Geometry3S, shards: int, seed: int = 0,
+                     contention: bool = False, device="cpu") -> Slab3State:
+    """3D counterpart of :func:`shard_edge_slab`: every physical bin holds 0
+    to ``capacity`` live particles in random slots, the first and last slabs
+    of each of ``shards`` y strips (and the slabs beside them) at least
+    ``capacity - 2``, and every particle sits up to one bin outside its own
+    on all three axes, so movers cross each strip boundary up, down and
+    diagonally; none is a far mover, so nothing is dropped. With
+    ``contention`` those slabs hold ``capacity - 1`` or ``capacity``: the
+    movers across a boundary compete for at most one free slot a bin, and
+    the rest are deferred, never dropped."""
+    rng = np.random.default_rng(seed)
+    cap, Y, X, Z = geom.shape
+    yl = Y // shards
+    occ = rng.integers(0, cap + 1, size=(Y, X, Z))
+    lo = cap - 1 if contention else cap - 2
+    for d in range(shards):
+        for y in (d * yl - 1, d * yl, d * yl + 1, d * yl + yl - 2, d * yl + yl - 1):
+            if 0 <= y < Y:
+                occ[y] = rng.integers(lo, cap + 1, size=(X, Z))
+    occ[geom.ys:] = 0
+    occ[:, geom.xs:] = 0
+    occ[:, :, geom.zs:] = 0
+    rank = np.argsort(np.argsort(rng.random((cap, Y, X, Z)), axis=0), axis=0)
+    live = rank < occ[None]
+    n = int(live.sum())
+    fields = []
+    for bs in (geom.bsx, geom.bsy, geom.bsz):
+        f = np.full(geom.shape, BIG, np.float32)
+        f[live] = rng.uniform(-bs, 2 * bs, n)
+        fields.append(f)
+    for _ in range(3):
+        v = np.zeros(geom.shape, np.float32)
+        v[live] = rng.normal(size=n)
+        fields.append(v)
+    pid = np.full(geom.shape, -1, np.int32)
+    pid[live] = rng.permutation(n).astype(np.int32)
+    return slab3_state_from_numpy(*fields, pid, device=device)

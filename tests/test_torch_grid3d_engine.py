@@ -78,6 +78,30 @@ def test_engine_matches_jax_grid3d_engine(jax_grid3d_run, engine):
     assert torch.equal(torch.sort(pids).values, torch.arange(400, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("impl", ["cuda", "plain"])
+def test_sharded_grid3d_matches_jax_grid3d_engine(jax_grid3d_run, impl, P):
+    """The sharded engine (tests/test_torch_sharded3d_engine.py) against the
+    same JAX grid3d runs, the JAX package's own contract for its sharded 3D
+    engine (tests/test_3d_grid.py:274): sharded_grid3d on LocalMesh(P), impl
+    cuda (the kernels' twins on the CPU) and plain; final positions within
+    1e-5, monitors max_bin_count / dropped / deferred exact, max speed to
+    1e-5, every pid in one slot."""
+    tcfg, tstate, jr = jax_grid3d_run
+    eng = get_engine("sharded_grid3d", tcfg, device="cpu", shards=P, impl=impl)
+    tr = eng.run(tstate, nsteps=24)
+    diff = np.abs(tr.state.pos.numpy() - np.asarray(jr.state.pos)).max()
+    assert diff <= 1e-5
+    for f in ("max_bin_count", "migrate_dropped", "deferred"):
+        assert int(getattr(tr.monitors, f)) == int(getattr(jr.monitors, f)), f
+    assert float(tr.monitors.max_speed) == pytest.approx(
+        float(jr.monitors.max_speed), rel=1e-5)
+    eng.check(tr)
+    pids = eng.full_slab(tr.carry).pid
+    assert torch.equal(torch.sort(pids[pids >= 0]).values,
+                       torch.arange(400, dtype=torch.int32))
+
+
 def test_auto_raise_matches_jax():
     """An under-capacity pack auto-raises to the measured packing (+1 slot
     for LJ) as the JAX engine does, and the raised engine's step equals one

@@ -1,6 +1,6 @@
-"""``sharded_grid`` over ``torch.distributed``: ``DistMesh`` under gloo with
-two CPU processes equals ``LocalMesh(2)`` in one process, bitwise, in both
-rebin modes and on a saved run. The processes meet through a ``FileStore``
+"""``sharded_grid`` and ``sharded_grid3d`` over ``torch.distributed``:
+``DistMesh`` under gloo with two CPU processes equals ``LocalMesh(2)`` in one
+process, bitwise, in both 2D rebin modes and in 3D, on a saved run. The processes meet through a ``FileStore``
 in the test's own directory (no TCP port, so parallel test workers cannot
 collide), and each has a hard time limit after which the test fails.
 
@@ -20,12 +20,19 @@ WORLD = 2
 TIMEOUT_S = 120
 CFG = SimConfig(num_parts=3000, grid_bin_scale=3.0, grid_capacity=6,
                 evac_capacity=2, rebin_every=4)
+# 3D: the JAX package's 3D test config, y strips of 3 slabs.
+CFG3 = SimConfig(num_parts=400, ndim=3, density=7e-6, grid3_capacity=8,
+                 evac_capacity=2, rebin3_every=4)
 STEPS, SAVEFREQ = 13, 4
 
 
-def _run(cfg, mesh=None, shards=None):
+def _run(mode, mesh=None, shards=None):
+    """The run of ``mode``: a 2D rebin mode on sharded_grid, or "3d" on
+    sharded_grid3d."""
     torch.set_num_threads(1)
-    eng = get_engine("sharded_grid", cfg, device="cpu", mesh=mesh, shards=shards)
+    name, cfg = (("sharded_grid3d", CFG3) if mode == "3d"
+                 else ("sharded_grid", CFG.with_(grid_rebin_mode=mode)))
+    eng = get_engine(name, cfg, device="cpu", mesh=mesh, shards=shards)
     return eng.run(init_particles(cfg, seed=3), nsteps=STEPS, savefreq=SAVEFREQ)
 
 
@@ -40,7 +47,7 @@ def _worker(rank, store_path, mode, out_path):
         mesh = DistMesh("cpu")
         mine = torch.full((1, 1, 2), float(rank))
         nbrs = [mesh.from_above([mine], -1.0)[0], mesh.from_below([mine], -1.0)[0]]
-        res = _run(CFG.with_(grid_rebin_mode=mode), mesh=mesh)
+        res = _run(mode, mesh=mesh)
         np.savez(f"{out_path}.{rank}.npz", pos=res.state.pos.numpy(),
                  vel=res.state.vel.numpy(), frames=res.frames,
                  monitors=np.array([float(m) for m in res.monitors]),
@@ -49,7 +56,7 @@ def _worker(rank, store_path, mode, out_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("mode", ["axes", "dirs9"])
+@pytest.mark.parametrize("mode", ["axes", "dirs9", "3d"])
 def test_dist_mesh_gloo_equals_local_mesh(tmp_path, mode):
     ctx = multiprocessing.get_context("spawn")
     out = str(tmp_path / "run")
@@ -68,7 +75,7 @@ def test_dist_mesh_gloo_equals_local_mesh(tmp_path, mode):
             if p.is_alive():
                 p.kill()
                 p.join(10)
-    want = _run(CFG.with_(grid_rebin_mode=mode), shards=WORLD)
+    want = _run(mode, shards=WORLD)
     for rank in range(WORLD):
         got = np.load(f"{out}.{rank}.npz")
         np.testing.assert_array_equal(got["pos"], want.state.pos.numpy())

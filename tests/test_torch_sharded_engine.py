@@ -174,11 +174,12 @@ def test_sharded_grid_defaults_to_the_card():
 
 
 def test_sharded_modules_and_chip_smoke_never_import_jax():
-    """The sharded engine, its mesh and chip_smoke.py import nothing of JAX
-    or the JAX package, at import time or inside any function."""
+    """The sharded engines, their mesh and chip_smoke.py import nothing of
+    JAX or the JAX package, at import time or inside any function."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['ppsim_tpu'] = None\n"
         "import ppsim_tpu_torch.engines.sharded_grid, ppsim_tpu_torch.engines.mesh\n"
+        "import ppsim_tpu_torch.engines.sharded_grid3d\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )

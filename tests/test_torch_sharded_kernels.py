@@ -1,34 +1,44 @@
-"""The shard forms of K1, K2, K7 and K8 (row offset and ghost rows) on the
-card: each against its plain twin with the same ghosts, and against the
-rows of the single-device kernel's output on the whole slab; and the
-``sharded_grid`` engine against the single-device ``cuda`` engine. This
-file imports no JAX, so it runs on a GPU host without it:
+"""The shard forms of K1, K2, K7 and K8 (row offset and ghost rows) and of
+K3, K4 and K5 (y offset and ghost y slabs) on the card: each against its
+plain twin with the same ghosts, and against the rows of the single-device
+kernel's output on the whole slab; the entry points' refusal of half the
+ghosts; and the ``sharded_grid`` and ``sharded_grid3d`` engines against the
+single-device ``cuda`` and ``cuda3d`` engines. This file imports no JAX, so
+it runs on a GPU host without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_sharded_kernels.py
 
 On the CPU every test skips (a CUDA kernel has no CPU mode). Tolerances: the
-rebins bitwise; K1 against its twin at K1's (rtol 1e-5, atol 1e-6), and
-bitwise against the single-device kernel (each particle's sum does not
-depend on the split).
+rebins bitwise; K1 and K3 against their twins at their own (rtol 1e-5, atol
+1e-6), and bitwise against the single-device kernel (each particle's sum
+does not depend on the split).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ppsim_tpu_torch import _build
 from ppsim_tpu_torch.config import SimConfig
-from ppsim_tpu_torch.convert import shards_from_numpy, shards_to_numpy
+from ppsim_tpu_torch.convert import shards3_from_numpy, shards_from_numpy, shards_to_numpy
 from ppsim_tpu_torch.engines import get_engine
 from ppsim_tpu_torch.engines.mesh import LocalMesh
 from ppsim_tpu_torch.initlib import init_particles
 from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda, grid_step_plain
+from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
+from ppsim_tpu_torch.ops.cuda_rebin3 import (
+    rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_ypass_cuda, rebin3_ypass_plain,
+)
 from ppsim_tpu_torch.ops.cuda_rebin import (
     rebin_axes_call_cuda, rebin_axes_call_plain, rebin_counts_cuda, rebin_counts_plain,
     rebin_shuffle_cuda, rebin_shuffle_plain,
 )
 from ppsim_tpu_torch.ops.binning import BIG
-from ppsim_tpu_torch.ops.grid_ops import SLAB_FILLS, SlabGeometry
-from ppsim_tpu_torch.testing import SHARD_EDGE_GEOMETRY, shard_edge_slab
+from ppsim_tpu_torch.ops.grid3d_ops import FILLS3, Geometry3S
+from ppsim_tpu_torch.ops.grid_ops import SLAB_FILLS, SlabGeometry, f32
+from ppsim_tpu_torch.testing import (
+    SHARD_EDGE_GEOMETRY, SHARD_EDGE_GEOMETRY3, shard_edge_slab, shard_edge_slab3,
+)
 
 RTOL, ATOL = 1e-5, 1e-6
 EVAC = 2
@@ -134,6 +144,147 @@ def test_sharded_engine_equals_cuda_engine_on_card(cuda, mode):
     ref = get_engine("cuda", cfg, device=cuda).run(state, nsteps=24)
     for P in (2, 4):
         res = get_engine("sharded_grid", cfg, device=cuda, shards=P).run(state, nsteps=24)
+        _equal(f"P={P} pos", res.state.pos, ref.state.pos)
+        _equal(f"P={P} vel", res.state.vel, ref.state.vel)
+        assert [float(m) for m in res.monitors] == [float(m) for m in ref.monitors]
+
+
+# 3D: 40 x 20 x 100 bins in 40 x 24 x 128, capacity 6: shards of 20 y slabs
+# (P = 2), each many of K3's segments; SHARD_EDGE_GEOMETRY3's last shard is
+# ragged (slab 11 of 12 is padding) at P = 2 and 4.
+LARGE3 = Geometry3S(ys=40, xs=20, zs=100, ys_pad=40, xs_pad=24, zs_pad=128,
+                    capacity=6, bsy=0.05, bsx=0.04, bsz=0.03)
+CASES3 = {"edge-P2": (SHARD_EDGE_GEOMETRY3, 2, False),
+          "edge-P4": (SHARD_EDGE_GEOMETRY3, 4, False),
+          "contention-P4": (SHARD_EDGE_GEOMETRY3, 4, True),
+          "large-P2": (LARGE3, 2, False)}
+CFG3 = SimConfig(num_parts=400, ndim=3, density=7e-6, grid3_capacity=8,
+                 evac_capacity=2, rebin3_every=4)
+
+
+def _rebin3_shards(geom, P, contention, device):
+    slab = shard_edge_slab3(geom, P, seed=P, contention=contention, device=device)
+    return slab, shards3_from_numpy(*(t.cpu().numpy() for t in slab), P, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES3))
+def test_shard_rebin3_kernels_bitwise_on_card(cuda, case):
+    """K4 with y0, then K5 with y0 and the ghosts of K4's output, against
+    their twins and the rows of the single-device K4 and K5."""
+    geom, P, contention = CASES3[case]
+    slab, shards = _rebin3_shards(geom, P, contention, cuda)
+    mesh = LocalMesh(P, cuda)
+    yl = geom.ys_pad // P
+    wmid, wcnt = rebin3_inplane_cuda(slab, geom, EVAC)
+    whole, wpost = rebin3_ypass_cuda(wmid, wcnt, geom, EVAC)
+    mids = []
+    for d, s in enumerate(shards):
+        mid, cnt = rebin3_inplane_cuda(s, geom, EVAC, y0=d * yl)
+        want = rebin3_inplane_plain(s, geom, EVAC, y0=d * yl)
+        for k, (g, w, f) in enumerate(zip((*mid, cnt), (*want[0], want[1]), (*wmid, wcnt))):
+            _equal(f"K4 shard {d} output {k} vs twin", g, w)
+            _equal(f"K4 shard {d} output {k} vs single device", g, f[:, d * yl:(d + 1) * yl])
+        mids.append((mid, cnt))
+    fh = [mesh.halo([m[k] for m, _ in mids], FILLS3[k], 1, 1) for k in range(7)]
+    ch = mesh.halo([c[:2] for _, c in mids], 0, 1, 2)
+    for d, (mid, cnt) in enumerate(mids):
+        kw = dict(y0=d * yl, field_ghosts=[h[d] for h in fh], count_ghosts=ch[d])
+        got, post = rebin3_ypass_cuda(mid, cnt, geom, EVAC, **kw)
+        want, wp = rebin3_ypass_plain(mid, cnt, geom, EVAC, **kw)
+        for k, (g, w, f) in enumerate(zip((*got, post), (*want, wp), (*whole, wpost))):
+            _equal(f"K5 shard {d} output {k} vs twin", g, w)
+            _equal(f"K5 shard {d} output {k} vs single device", g, f[:, d * yl:(d + 1) * yl])
+    assert int(wcnt[3].sum()) == 0 and int(wcnt[4].sum()) == int(wpost[0].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("law", ["repulsive", "lj"])
+def test_shard_step3_kernel_on_card(cuda, P, law):
+    cfg = CFG3 if law == "repulsive" else CFG3.with_(force_law="lj", dt=1e-4)
+    eng = get_engine("sharded_grid3d", cfg, device="cpu", shards=P)
+    arrays = [a.copy() for a in shards_to_numpy(
+        eng.init_carry(init_particles(cfg, seed=42, method="fast")).slab)]
+    rng = np.random.default_rng(5)
+    live = arrays[6] >= 0
+    geom, yl = eng.geom, eng.ys_local
+    for k, bs in enumerate((geom.bsx, geom.bsy, geom.bsz)):
+        arrays[k][live] += rng.uniform(-0.2, 0.2, live.sum()).astype(np.float32) * bs
+    shards = shards3_from_numpy(*arrays, P, device=cuda)
+    args = (geom, cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size, law, cfg.law_params)
+    whole = grid3_step_cuda(*(torch.from_numpy(a).to(cuda) for a in arrays[:6]), *args)
+    mesh = LocalMesh(P, cuda)
+    halos = [mesh.halo([s[k] for s in shards], BIG, 1, 1) for k in range(3)]
+    for d, s in enumerate(shards):
+        ghosts = tuple(h[d][0] for h in halos) + tuple(h[d][1] for h in halos)
+        got = grid3_step_cuda(*s[:6], *args, y0=d * yl, ghosts=ghosts)
+        want = grid3_step_plain(*s[:6], *args, y0=d * yl, ghosts=ghosts)
+        for k, (g, w, f) in enumerate(zip(got, want, whole)):
+            assert torch.allclose(g, w, rtol=RTOL, atol=ATOL), (d, k)
+            rows = f[:, d * yl:(d + 1) * yl] if f.dim() == 4 else f[d * yl:(d + 1) * yl]
+            _equal(f"K3 shard {d} output {k} vs single device", g, rows)
+
+
+@pytest.mark.cuda
+def test_shard3_entry_points_refuse_half_the_ghosts(cuda):
+    """K3's wrapper takes all six ghost planes and K5's its field and count
+    ghosts together; their C entry points return cudaErrorInvalidValue (1)
+    for one side's ghosts without the other's, and write nothing."""
+    geom, P = SHARD_EDGE_GEOMETRY3, 2
+    slab, shards = _rebin3_shards(geom, P, False, cuda)
+    s = shards[0]
+    cap, Y, X, Z = s.xl.shape
+    ghost = torch.full((cap, 1, X, Z), BIG, device=cuda)
+    step_args = (geom, CFG3.cutoff, CFG3.min_r, CFG3.mass, CFG3.dt, CFG3.size)
+    with pytest.raises(ValueError, match="6 ghost planes"):
+        grid3_step_cuda(*s[:6], *step_args, ghosts=(ghost,) * 3)
+    mid, cnt = rebin3_inplane_cuda(s, geom, EVAC)
+    fh = LocalMesh(P, cuda).halo([mid.xl, mid.xl], BIG, 1, 1)
+    with pytest.raises(ValueError, match="together"):
+        rebin3_ypass_cuda(mid, cnt, geom, EVAC, field_ghosts=[fh[0]] * 7)
+    lib = _build.kernels()
+    out = [torch.full_like(t, 7) for t in mid]
+    post = torch.full((2, Y, X, Z), 7, dtype=torch.int32, device=cuda)
+    pid_ghost = torch.full((cap, 1, X, Z), -1, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    # K5: field ghosts above and below, no count ghosts
+    err = lib.ppsim_rebin3_ypass(
+        *(t.data_ptr() for t in (*mid, cnt)), *(ghost.data_ptr(),) * 6, pid_ghost.data_ptr(),
+        *(ghost.data_ptr(),) * 6, pid_ghost.data_ptr(), 0, 0,
+        *(t.data_ptr() for t in (*out, post)), cuda.index, cap, Y, X, Z, 0, geom.ys,
+        geom.xs, geom.zs, EVAC, f32(geom.bsy), f32(1.0 / geom.bsx), f32(1.0 / geom.bsy),
+        f32(1.0 / geom.bsz), stream)
+    torch.cuda.synchronize()
+    assert err == 1
+    # K3: the top ghost slab's x without its y and z
+    from ppsim_tpu_torch.ops.cuda_grid import pair_args
+    from ppsim_tpu_torch.ops.cuda_grid3 import step3_plan
+
+    plan = step3_plan((cap, Y, X, Z))
+    sp = torch.full((Y, X, Z), 7.0, device=cuda)
+    err = lib.ppsim_grid3_step(
+        *(t.data_ptr() for t in s[:6]), ghost.data_ptr(), *(0,) * 5,
+        *(t.data_ptr() for t in out[:6]), sp.data_ptr(), cuda.index, cap, Y, X, Z, 0,
+        geom.xs, geom.zs, *pair_args("repulsive", CFG3.cutoff, CFG3.min_r, CFG3.mass, ())[:1],
+        *plan.tile, plan.seg, plan.threads, plan.blocks, plan.smem, f32(geom.bsx),
+        f32(geom.bsy), f32(geom.bsz),
+        *pair_args("repulsive", CFG3.cutoff, CFG3.min_r, CFG3.mass, ())[1:],
+        f32(CFG3.dt), f32(CFG3.size), stream)
+    torch.cuda.synchronize()
+    assert err == 1
+    for a in (*out, post, sp):
+        assert bool((a == 7).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["repulsive", "lj"])
+def test_sharded_grid3d_equals_cuda3d_on_card(cuda, law):
+    cfg = CFG3 if law == "repulsive" else CFG3.with_(force_law="lj", dt=1e-4)
+    state = init_particles(cfg, seed=42, method="fast", device=cuda)
+    ref = get_engine("cuda3d", cfg, device=cuda).run(state, nsteps=24)
+    for P in (2, 4):
+        res = get_engine("sharded_grid3d", cfg, device=cuda, shards=P).run(state, nsteps=24)
         _equal(f"P={P} pos", res.state.pos, ref.state.pos)
         _equal(f"P={P} vel", res.state.vel, ref.state.vel)
         assert [float(m) for m in res.monitors] == [float(m) for m in ref.monitors]
