@@ -84,11 +84,27 @@ Phases, each printing its result and seconds on its own line:
    cadence 8): monitors, pid census, a checker PASS on the final frame, the
    final state bitwise equal to phase 6's, its seconds beside phase 6's, the
    shard forms' times on the final state, and a profiler window of two
-   rebin periods.
+   rebin periods;
+12. the tile forms and the 2-D tile engine ``sharded_tile`` on in-process
+   meshes (``LocalMesh((Pr, Pc))``): (a) K1 and K2 with row and column
+   offsets and real ghost rows, ghost columns and corners on the step-11
+   main-path slab, its columns padded to the tile geometry and cut into
+   2 x 2 tiles and into 1 x 4, against their twins (K1 allclose, K2
+   bitwise) and against the bins of the single-device kernels' output on the
+   whole padded slab (bitwise for both); each tile form's time beside the
+   single-device call on the same bins and a quarter of the whole-slab
+   call; (b) the main path on ``sharded_tile`` with a 2 x 2 mesh at full
+   width (n = 20,971,520, 1000 steps, axes, cadence 11): monitors, pid
+   census, a checker PASS on the final frame, the final state bitwise equal
+   to phase 3's, its seconds beside phase 3's, and a profiler window of two
+   rebin periods; (c) dirs9 on the tile route (the torch ops on each tile's
+   ghost ring, as the JAX engine runs it) for 200 steps, against phase
+   10c's single-device ``cuda`` dirs9 run, with its slowest device ops.
 
 The line before the last is a JSON object with each kernel's launches in its
 full-width run (phase 3 for K1 and K2, phase 6 for K3-K5, phase 9 for K6-K8,
-phase 10 for the 2D shard forms, phase 11 for the 3D ones),
+phase 10 for the 2D shard forms, phase 11 for the 3D ones, phase 12b for the
+tile forms),
 its largest
 difference from the plain twin, its time beside the plain twin's and its
 bound (the larger of its bytes over 3.35 TB/s and its operations over 67
@@ -139,6 +155,8 @@ N_PAD3 = 262_144  # 41^3 bins padded to 41 x 48 x 128, capacity 10
 # Phase 10: shards of the in-process mesh, and the depth of the dirs9 run.
 SHARDS = 4
 STEPS_DIRS9_SHARDED = 200
+# Phase 12: the tile meshes (the near-square one of 4, and columns only).
+TILE_MESHES = ((2, 2), (1, 4))
 # Peak rates of one NVIDIA H100 SXM at 700 W (HBM3 bandwidth, dense FP32).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -894,10 +912,11 @@ def shard_forms(name, slab, geom, cfg, with_k1: bool):
     return err1, calls
 
 
-def phase_sharded(kernels, state, cfg, ref3, smi: str) -> None:
+def phase_sharded(kernels, state, cfg, ref3, smi: str):
     """Phase 10: the shard forms of K1, K2, K7 and K8 and the sharded engine
     at full width. Fills the shard-form records of ``kernels``; ``ref3`` is
-    phase 3's (final ParticleState, seconds)."""
+    phase 3's (final ParticleState, seconds). Returns the single-device dirs9
+    run of 10c: (final ParticleState, monitors, seconds)."""
     import torch
 
     from ppsim_tpu_torch.engines import get_engine
@@ -1048,9 +1067,11 @@ def phase_sharded(kernels, state, cfg, ref3, smi: str) -> None:
         f"{int(m.max_bin_count)} dropped {int(m.migrate_dropped)} deferred "
         f"{int(m.deferred)}); launches grid_step {launches[0]}, rebin_counts "
         f"{launches[1]}, rebin_shuffle {launches[2]} ({smi})")
-    del result, ref9, engine
+    ref9 = (ref9.state, ref9.monitors, ref9_seconds)
+    del result, engine
     torch.cuda.empty_cache()
     phase_line("10c", "sharded dirs9 clean", t0)
+    return ref9
 
 
 def shard_forms3(name, slab, geom, cfg, with_k3: bool):
@@ -1297,6 +1318,250 @@ def phase_sharded3d(kernels, state3, ref6, smi: str) -> None:
     phase_line("11b", "sharded stretch config at full width clean", t0)
 
 
+def tile_forms(name, slab, geom, cfg, shape):
+    """K1 and K2 in their tile forms on the tiles of ``slab`` (planes of the
+    tile geometry ``geom``) cut on a ``shape`` mesh (``LocalMesh``: each tile
+    its own tensors, the ghost ring copied by the mesh, rows first, so the
+    corners come with the ghost columns) against their twins and against
+    the bins of the single-device kernels' output on the whole slab. Returns
+    K1's largest difference from its twin and, per kernel, the calls on
+    the last tile (ghosts on its two inner sides) for the timings: (tile
+    form, twin, single-device call on the same bins), and that tile's ghost
+    ring of the K1 exchange."""
+    from ppsim_tpu_torch.engines.mesh import LocalMesh
+    from ppsim_tpu_torch.ops.binning import BIG
+    from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda, grid_step_plain
+    from ppsim_tpu_torch.ops.cuda_rebin import rebin_axes_call_cuda, rebin_axes_call_plain
+    from ppsim_tpu_torch.ops.grid_ops import SLAB_FILLS, SlabState
+
+    evac = cfg.evac_capacity
+    mesh = LocalMesh(shape, slab.xl.device)
+    _, R, C = slab.xl.shape
+    rl, cl = R // shape[0], C // shape[1]
+    tiles = [SlabState(*fs) for fs in zip(*(mesh.split(f) for f in slab))]
+    last = mesh.size - 1
+
+    def offsets(d):
+        r, c = mesh.coords(d)
+        return r * rl, c * cl
+
+    def bins(t, d):
+        r0, c0 = offsets(d)
+        return t[..., r0:r0 + rl, c0:c0 + cl]
+
+    calls, err1 = {}, 0.0
+    a1 = (geom, cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size)
+    whole = grid_step_cuda(*slab[:4], *a1)
+    gx, gy = (mesh.tile_halo([t[k] for t in tiles], BIG, 1, 1, 1, 1) for k in (0, 1))
+    for d, t in enumerate(tiles):
+        r0, c0 = offsets(d)
+        (tx, bx, wx, ex), (ty, by, wy, ey) = gx[d], gy[d]
+        kw = dict(row0=r0, ghosts=(tx, ty, bx, by), col0=c0, col_ghosts=(wx, wy, ex, ey))
+        got = grid_step_cuda(*t[:4], *a1, **kw)
+        want = grid_step_plain(*t[:4], *a1, **kw)
+        for p, g, w, f in zip(("xl", "yl", "vx", "vy", "speed2"), got, want, whole):
+            err1 = max(err1, assert_close(f"K1 tile {name} tile {d} {p}", g, w,
+                                          K1_RTOL, K1_ATOL))
+            assert_equal(f"K1 tile {name} tile {d} {p} vs single device", g, bins(f, d))
+        if d == last:
+            calls["k1"] = (lambda t=t, kw=kw: grid_step_cuda(*t[:4], *a1, **kw),
+                           lambda t=t, kw=kw: grid_step_plain(*t[:4], *a1, **kw),
+                           lambda t=t: grid_step_cuda(*t[:4], *a1))
+    del whole
+    whole, whole_cnt = rebin_axes_call_cuda(slab, geom, evac)
+    halos = [mesh.tile_halo([t[k] for t in tiles], SLAB_FILLS[k], 1,
+                            2 if k in (0, 4) else 1, 1, 2) for k in range(5)]
+    for d, t in enumerate(tiles):
+        r0, c0 = offsets(d)
+        kw = dict(row0=r0, field_ghosts=[h[d][:2] for h in halos], col0=c0,
+                  col_ghosts=[h[d][2:] for h in halos])
+        got, cnt = rebin_axes_call_cuda(t, geom, evac, **kw)
+        want, wcnt = rebin_axes_call_plain(t, geom, evac, **kw)
+        for k, (g, w, f) in enumerate(zip((*got, cnt), (*want, wcnt), (*whole, whole_cnt))):
+            assert_equal(f"K2 tile {name} tile {d} output {k}", g, w)
+            assert_equal(f"K2 tile {name} tile {d} output {k} vs single device", g, bins(f, d))
+        if d == last:
+            calls["k2"] = (lambda t=t, kw=kw: rebin_axes_call_cuda(t, geom, evac, **kw),
+                           lambda t=t, kw=kw: rebin_axes_call_plain(t, geom, evac, **kw),
+                           lambda t=t: rebin_axes_call_cuda(t, geom, evac))
+    log(f"  tile forms, {name} ({shape[0]} x {shape[1]} tiles of {rl} x {cl}, real ghost "
+        f"rows, columns and corners): K1 allclose to its twin (rtol {K1_RTOL:g}, atol "
+        f"{K1_ATOL:g}; max abs diff {err1:.3e}) and bitwise equal to the single-device "
+        f"K1's bins; K2 bitwise equal to its twin and to the single-device K2's bins, "
+        f"count planes included")
+    return err1, calls, tiles[last].pid
+
+
+def phase_tile(kernels, state, cfg, ref3, ref9, smi: str) -> None:
+    """Phase 12: the tile forms of K1 and K2 and the 2-D tile engine at full
+    width. Fills the tile-form records of ``kernels``; ``ref3`` is phase 3's
+    (final ParticleState, seconds), ``ref9`` phase 10c's single-device dirs9
+    run (final ParticleState, monitors, seconds)."""
+    import torch
+
+    from ppsim_tpu_torch.engines import get_engine
+    from ppsim_tpu_torch.harness import timed_run
+    from ppsim_tpu_torch.ops.grid_ops import SLAB_FILLS, SlabState
+    from ppsim_tpu_torch.profiling import profile_steps
+
+    dev = torch.device("cuda", 0)
+    recs = {"k1": kernels["grid_step_tile"], "k2": kernels["rebin_axes_tile"]}
+    whole_ms = {"k1": kernels["grid_step"]["ms"], "k2": kernels["rebin_axes"]["ms"]}
+
+    # ---- (a) the tile forms against their twins and the single device -----
+    t0 = time.perf_counter()
+    eng = get_engine("cuda", cfg, device=dev)
+    carry = eng.init_carry(state)
+    for _ in range(CADENCE_MAIN):
+        carry = eng.step_plain(carry)
+    slab11 = carry.slab
+    del carry, eng
+    err1, times = 0.0, {}
+    for shape in TILE_MESHES:
+        geom = get_engine("sharded_tile", cfg, device=dev, mesh_shape=shape).geom
+        pad = geom.cols_pad - slab11.xl.shape[2]
+        slab = SlabState(*(torch.cat([f, torch.full_like(f[..., :pad], fill)], 2)
+                           for f, fill in zip(slab11, SLAB_FILLS)))
+        e, calls, pid = tile_forms(f"main-path slab after {CADENCE_MAIN} steps", slab,
+                                   geom, cfg, shape)
+        err1 = max(err1, e)
+        # times on the last tile: the tile form and the single-device call on
+        # the same bins (no ghosts) in turns, the twin once
+        t = {}
+        for k, (tile_fn, plain_fn, single_fn) in calls.items():
+            a = [cuda_ms(tile_fn, 20), cuda_ms(single_fn, 20)]
+            a += [cuda_ms(tile_fn, 20), cuda_ms(single_fn, 20)]
+            t[k] = (min(a[0], a[2]), min(a[1], a[3]), cuda_ms(plain_fn, 2))
+        # bounds on that tile: the single-device bytes of its bins plus the
+        # ghosts read (K1: 2 planes x (2 rows + 2 columns of R + 2); K2: rows
+        # 5 planes above, 7 below, columns 5 planes x 3 of R + 2 and xl, pid
+        # x 3 more); 5 flops a candidate pair of the tile and its ring
+        cap, R, C = pid.shape
+        plane_b = 4 * pid.numel()
+        bin_b = plane_b // cap
+        row_b, col_b = 4 * cap * C, 4 * cap * (R + 2)
+        # the tile and its ring of the slab (the pairs of ring bins with
+        # each other are not the tile's work)
+        r0, c0 = (shape[0] - 1) * R, (shape[1] - 1) * C
+        ext = slab.pid[:, max(r0 - 1, 0):r0 + R + 1, max(c0 - 1, 0):c0 + C + 1]
+        top, left = int(r0 > 0), int(c0 > 0)
+        bot, right = ext.shape[1] - top - R, ext.shape[2] - left - C
+        pairs = candidate_pairs(ext)
+        for part in ((ext[:, :top] if top else None), (ext[:, top + R:] if bot else None),
+                     (ext[:, top:top + R, :left] if left else None),
+                     (ext[:, top:top + R, left + C:] if right else None)):
+            if part is not None:
+                pairs -= candidate_pairs(part)
+        for k, nbytes, flops in (
+                ("k1", 8 * plane_b + bin_b + 4 * row_b + 4 * col_b, 5 * pairs),
+                ("k2", 10 * plane_b + 4 * bin_b + 12 * row_b + 15 * col_b
+                 + 6 * 4 * cap, 0)):
+            bound, by = bound_of(nbytes, flops)
+            t[k] += (bound, by)
+        log(f"  times on the last tile of {shape[0]} x {shape[1]} ({R} x {C} x {cap}; "
+            f"ms/call; {smi}): " + "; ".join(
+                f"{k.upper()} tile form {v[0]:.4f}, single-device call on the same bins "
+                f"{v[1]:.4f}, whole slab / 4 {whole_ms[k] / 4:.4f}, twin {v[2]:.3f}, "
+                f"bound {v[3]:.4f} ({v[4]})" for k, v in t.items()))
+        times[shape] = t
+        del slab, calls, pid
+        torch.cuda.empty_cache()
+    for k in ("k1", "k2"):
+        ms, single, plain, bound, by = times[TILE_MESHES[0]][k]
+        recs[k].update(max_abs_err=err1 if k == "k1" else 0.0, ms=ms, plain_ms=plain,
+                       bound_ms=bound, bound_by=by, ms_single_same_bins=single,
+                       ms_1x4=times[TILE_MESHES[1]][k][0])
+    del slab11
+    torch.cuda.empty_cache()
+    phase_line("12a", "tile forms agree with their twins and the single device", t0)
+
+    # ---- (b) the main path on sharded_tile at full width (2 x 2) -----------
+    t0 = time.perf_counter()
+    shape = TILE_MESHES[0]
+    engine = get_engine("sharded_tile", cfg, device=dev, mesh_shape=shape)
+    P = engine.mesh.size
+    for k in ("k1", "k2"):
+        recs[k]["wrapper"].launches = 0
+    result, seconds = timed_run(engine, state, STEPS_MAIN, 0)
+    for k in ("k1", "k2"):
+        recs[k]["launches"] = recs[k]["wrapper"].launches
+    engine.check(result)
+    check_final(engine.full_slab(result.carry), result.state.pos, N_MAIN, 2, cfg.size)
+    warm = cfg.rebin_every
+    want = (P * (STEPS_MAIN + warm), P * (STEPS_MAIN // CADENCE_MAIN + 1))
+    if (recs["k1"]["launches"], recs["k2"]["launches"]) != want:
+        raise AssertionError(f"launches {recs['k1']['launches']}, "
+                             f"{recs['k2']['launches']}, expected {want}")
+    final_frame_check("the tile main path", result.state.pos, cfg)
+    ref_state, ref_seconds = ref3
+    assert_equal("tile main path pos vs phase 3", result.state.pos, ref_state.pos)
+    assert_equal("tile main path vel vs phase 3", result.state.vel, ref_state.vel)
+    m = result.monitors
+    g = engine.geom
+    log(f"  sharded_tile ({shape[0]} x {shape[1]} tiles of {engine.rows_local} x "
+        f"{engine.cols_local}, padded {g.rows_pad} x {g.cols_pad}, LocalMesh) n={N_MAIN} "
+        f"steps={STEPS_MAIN} rebin_every={CADENCE_MAIN} axes: {seconds:.4f} s = "
+        f"{N_MAIN * STEPS_MAIN / seconds / 1e6:.2f} M particle-steps/s; cuda (phase 3, "
+        f"same process): {ref_seconds:.4f} s; tiles / single = {seconds / ref_seconds:.4f} "
+        f"({smi})")
+    log(f"  final state bitwise equal to phase 3's (positions and velocities); "
+        f"monitors: max_bin_count {int(m.max_bin_count)} dropped "
+        f"{int(m.migrate_dropped)} max_speed {float(m.max_speed):.4f} deferred "
+        f"{int(m.deferred)}")
+    log(f"  launches: grid_step {recs['k1']['launches']}, rebin_axes "
+        f"{recs['k2']['launches']} ({P} tiles x the schedule {STEPS_MAIN} + {warm} "
+        f"warm-up and {STEPS_MAIN // CADENCE_MAIN} + 1 warm-up)")
+    log(f"  every pid 0..{N_MAIN - 1} in exactly one slot")
+    carry = result.carry
+    del result
+    _, win = profile_steps(engine, carry, STEPS_MAIN + 1, 2 * CADENCE_MAIN)
+    log(f"  torch.profiler, tile main path, steps {win.steps.start}-"
+        f"{win.steps.stop - 1} ({smi}):")
+    for line in win.table(top=14).splitlines():
+        log(f"    {line}")
+    del carry, engine
+    torch.cuda.empty_cache()
+    phase_line("12b", "tile main path at full width clean", t0)
+
+    # ---- (c) dirs9 on the tile route ---------------------------------------
+    t0 = time.perf_counter()
+    cfg9 = cfg.with_(grid_rebin_mode="dirs9")
+    engine = get_engine("sharded_tile", cfg9, device=dev, mesh_shape=shape)
+    k1 = recs["k1"]["wrapper"]
+    k1.launches = 0
+    result, seconds = timed_run(engine, state, STEPS_DIRS9_SHARDED, 0)
+    launches = k1.launches
+    engine.check(result)
+    check_final(engine.full_slab(result.carry), result.state.pos, N_MAIN, 2, cfg.size)
+    if launches != P * (STEPS_DIRS9_SHARDED + warm):
+        raise AssertionError(f"dirs9 tile route K1 launches {launches}")
+    final_frame_check("the tile dirs9 run", result.state.pos, cfg)
+    ref9_state, ref9_mon, ref9_seconds = ref9
+    assert_equal("tile dirs9 pos vs cuda", result.state.pos, ref9_state.pos)
+    assert_equal("tile dirs9 vel vs cuda", result.state.vel, ref9_state.vel)
+    m = result.monitors
+    for f in ("max_bin_count", "migrate_dropped"):
+        if int(getattr(m, f)) != int(getattr(ref9_mon, f)):
+            raise AssertionError(f"tile dirs9 {f} {int(getattr(m, f))} vs "
+                                 f"{int(getattr(ref9_mon, f))}")
+    log(f"  sharded_tile dirs9 ({shape[0]} x {shape[1]}, the torch ops on each tile's "
+        f"2-bin ghost ring) n={N_MAIN} steps={STEPS_DIRS9_SHARDED}: {seconds:.4f} s; cuda "
+        f"dirs9 (phase 10c, same process): {ref9_seconds:.4f} s; final state bitwise "
+        f"equal to the cuda run's, max_bin_count {int(m.max_bin_count)} and dropped "
+        f"{int(m.migrate_dropped)} equal; deferred {int(m.deferred)} (cuda "
+        f"{int(ref9_mon.deferred)}); K1 tile launches {launches} ({smi})")
+    carry = result.carry
+    del result
+    _, win = profile_steps(engine, carry, STEPS_DIRS9_SHARDED + 1, CADENCE_MAIN)
+    log(f"  torch.profiler, tile dirs9 route, steps {win.steps.start}-"
+        f"{win.steps.stop - 1}, one rebin ({smi}):")
+    for line in win.table(top=10).splitlines():
+        log(f"    {line}")
+    del carry, engine
+    torch.cuda.empty_cache()
+    phase_line("12c", "tile dirs9 route clean", t0)
+
+
 def main() -> int:
     import torch
 
@@ -1367,6 +1632,11 @@ def main() -> int:
                                       "pallas_rebin3.py:388", rebin3_inplane_cuda),
         "rebin3_ypass_shard": entry("rebin3_ypass_shard", "rebin3.cu",
                                     "pallas_rebin3.py:466", rebin3_ypass_cuda),
+        # the tile forms (row and column offsets + ghost rows and columns)
+        "grid_step_tile": entry("grid_step_tile", "grid_step.cu",
+                                "pallas_grid.py:583", grid_step_cuda),
+        "rebin_axes_tile": entry("rebin_axes_tile", "rebin_axes.cu",
+                                 "pallas_rebin.py:646", rebin_axes_call_cuda),
     }
 
     # ---- phase 0: the card and the build ---------------------------------
@@ -1534,9 +1804,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_2d_rest(kernels, state, cfg, seconds, smi)
     torch.cuda.empty_cache()
-    phase_sharded(kernels, state, cfg, ref3, smi)
+    ref9 = phase_sharded(kernels, state, cfg, ref3, smi)
     torch.cuda.empty_cache()
     phase_sharded3d(kernels, state3, ref6, smi)
+    torch.cuda.empty_cache()
+    phase_tile(kernels, state, cfg, ref3, ref9, smi)
 
     out = [{k: v for k, v in rec.items() if k != "wrapper"}
            for rec in kernels.values()]

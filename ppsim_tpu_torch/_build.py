@@ -134,9 +134,9 @@ def kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, types in (
-            (lib.ppsim_grid_step, [P] * 13 + [I] * 11 + [F] * 10 + [P]),
+            (lib.ppsim_grid_step, [P] * 17 + [I] * 12 + [F] * 10 + [P]),
             (lib.ppsim_grid_force, [P] * 4 + [I] * 10 + [F] * 8 + [P]),
-            (lib.ppsim_rebin_axes, [P] * 21 + [I] * 13 + [F] * 2 + [P]),
+            (lib.ppsim_rebin_axes, [P] * 31 + [I] * 14 + [F] * 2 + [P]),
             (lib.ppsim_rebin_counts, [P] * 4 + [I] * 7 + [F] + [P]),
             (lib.ppsim_rebin_shuffle, [P] * 24 + [I] * 13 + [F] * 2 + [P]),
             (lib.ppsim_grid3_step, [P] * 19 + [I] * 15 + [F] * 12 + [P]),

@@ -19,7 +19,7 @@ from ppsim_tpu_torch.state import ParticleState, make_state
 
 __all__ = ["config_from_dict", "particle_state_from_numpy", "slab_state_from_numpy",
            "slab3_state_from_numpy", "shards_from_numpy", "shards3_from_numpy",
-           "shards_to_numpy"]
+           "shards_to_numpy", "tiles_from_numpy", "tiles_to_numpy"]
 
 
 def config_from_dict(fields: dict) -> SimConfig:
@@ -79,3 +79,26 @@ def shards_to_numpy(shards):
     ``SlabState``, or the seven (cap, P * Y, X, Z) of a ``Slab3State``."""
     return tuple(np.concatenate([s[k].cpu().numpy() for s in shards], axis=1)
                  for k in range(len(shards[0])))
+
+
+def tiles_from_numpy(xl, yl, vx, vy, pid, mesh_shape, device="cpu"):
+    """A JAX ``SlabState`` (as numpy, (cap, Pr * R, Pc * C)) cut into the
+    port's list of Pr x Pc tiles of R x C bins, row-major, each a SlabState
+    of its own tensors (the tile engine's carry)."""
+    pr, pc = mesh_shape
+    _, rows, cols = np.shape(pid)
+    if rows % pr or cols % pc:
+        raise ValueError(f"{rows} x {cols} bins do not split into {pr} x {pc} tiles")
+    parts = [[t for band in np.split(np.asarray(a), pr, axis=1)
+              for t in np.split(band, pc, axis=2)] for a in (xl, yl, vx, vy, pid)]
+    return [slab_state_from_numpy(*fs, device=device) for fs in zip(*parts)]
+
+
+def tiles_to_numpy(tiles, mesh_shape):
+    """The port's tile list (row-major on a (Pr, Pc) mesh) back to the five
+    (cap, Pr * R, Pc * C) numpy arrays of a JAX ``SlabState``."""
+    pc = mesh_shape[1]
+    return tuple(np.concatenate([np.concatenate([t[k].cpu().numpy() for t in tiles[r:r + pc]],
+                                                axis=2)
+                                 for r in range(0, len(tiles), pc)], axis=1)
+                 for k in range(len(tiles[0])))

@@ -71,6 +71,20 @@
 // template parameter (SHARD): the single-device call launches the instance
 // without them, which compiles to the kernel as it was before them.
 //
+// Tiles (the 2-D tile engine, engines/sharded_tile.py). A tile's planes are
+// also columns col0 .. col0 + C - 1 of the global slab; col0 enters the y
+// wall fold, and the neighbouring tiles' boundary columns arrive as ghost
+// planes (cap, R + 2, 1) each side, rows -1..R, so their first and last
+// rows are the corner bins of the diagonal tiles (the mesh sends the rows
+// first, then the columns of the row-extended blocks). The ring takes
+// columns -1 and C from them where the single-device kernel has the fill.
+// The TPU kernel carries a tile's ghost columns as 64-lane blocks on
+// column-extended arrays (a 128-lane alignment device, sharded_tile.py:
+// 183-193) and scatters reactions through them; here they are two bins a
+// row of the ring, only read, so no output is sliced off and a tile's sums
+// equal the single-device kernel's bitwise. The column inputs are a second
+// template parameter (COLS) beside SHARD.
+//
 // Force law. The pair coefficient comes from pair_coef.cuh, a template
 // parameter: the repulsive law (the default) or truncated Lennard-Jones.
 //
@@ -117,15 +131,20 @@ struct Tile2 {
 };
 
 // A shard's ghost rows: x and y of row -1 (top) and of row R (bottom), each
-// [cap][C]; null pointers where the fill applies.
+// [cap][C]; a tile's ghost columns: x and y of column -1 (west) and of
+// column C (east), rows -1..R, each [cap][R + 2]. Null pointers where the
+// fill applies.
 struct Ghost2 {
   const float *tx, *ty, *bx, *by;
   int row0;  // global row of the planes' row 0
+  const float *wx, *wy, *ex, *ey;
+  int col0;  // global column of the planes' column 0
 };
 
 // MOVE: K1 (outputs x, y, vx, vy and the speed plane); else K6 (outputs
-// ax, ay in o0, o1). SHARD: K1 with a row offset and ghost rows.
-template <Law LAW, bool MOVE, bool SHARD>
+// ax, ay in o0, o1). SHARD: K1 with a row offset and ghost rows. COLS: a
+// tile, SHARD with a column offset and ghost columns.
+template <Law LAW, bool MOVE, bool SHARD, bool COLS = false>
 __global__ void __launch_bounds__(ppsim::kTileThreads)
 grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
                  const float* __restrict__ vx, const float* __restrict__ vy,
@@ -160,6 +179,10 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
   const int gc = c0 - 1 + h;
   const bool interior = h >= 1 && h <= t.w;
   const bool in_array = gc >= 0 && gc < g.C;
+  // a tile's ghost column -1 or C, where given
+  const bool west = COLS && gc == -1 && gh.wx;
+  const bool east = COLS && gc == g.C && gh.ex;
+  const bool colg = west || east;
 
   // rows held: the planes' own, and the ghost rows -1 and R where given
   auto held = [&](int rr) {
@@ -167,13 +190,15 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
            (SHARD && ((rr == -1 && gh.tx) || (rr == g.R && gh.bx)));
   };
   auto issue = [&](int rr) {
-    if (!held(rr) || part >= parts || !in_array) return;
+    if (!held(rr) || part >= parts || !(in_array || colg)) return;
     float* c = reinterpret_cast<float*>(buf(rr));
     const bool own_row = !SHARD || (rr >= 0 && rr < g.R);
-    const float* px = own_row ? xl : (rr < 0 ? gh.tx : gh.bx);
-    const float* py = own_row ? yl : (rr < 0 ? gh.ty : gh.by);
-    const int64_t stride = own_row ? plane : g.C;
-    const int64_t gb = own_row ? (int64_t)rr * g.C + gc : gc;
+    // (pointers picked one by one: a struct picked by reference would be
+    // copied to local memory)
+    const float* px = west ? gh.wx : east ? gh.ex : own_row ? xl : (rr < 0 ? gh.tx : gh.bx);
+    const float* py = west ? gh.wy : east ? gh.ey : own_row ? yl : (rr < 0 ? gh.ty : gh.by);
+    const int64_t stride = colg ? (int64_t)g.R + 2 : own_row ? plane : g.C;
+    const int64_t gb = colg ? (int64_t)rr + 1 : own_row ? (int64_t)rr * g.C + gc : gc;
     for (int s = part; s < cap; s += parts) {
       ppsim::cp_async4(c + s * HB + h, px + s * stride + gb);
       ppsim::cp_async4(c + (cap + s) * HB + h, py + s * stride + gb);
@@ -182,7 +207,7 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
   auto compact = [&](int rr) {
     if (tid >= HB) return;
     unsigned char* b = buf(rr);
-    const bool loaded = held(rr) && in_array;
+    const bool loaded = held(rr) && (in_array || colg);
     int k = 0;
     uint32_t dead = 0;
     if (loaded)
@@ -191,7 +216,7 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
                                 HB, h, interior ? b + lay.slot : nullptr, OB,
                                 h - 1, &dead);
     b[lay.ncnt + h] = (uint8_t)k;
-    if (interior && loaded && rr >= ra && rr < rb) {
+    if (interior && loaded && !colg && rr >= ra && rr < rb) {
       const int64_t gb = (int64_t)rr * g.C + gc;
       for (int s = 0; s < cap; ++s) {
         if (dead >> s & 1u) {
@@ -229,9 +254,9 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
     ppsim::cp_async_commit();
 
     // the live own particles of row r, one list entry each (own bin o sits
-    // at halo bin o + 1)
+    // at halo bin o + 1; a ragged strip's bins past C are not its own)
     const unsigned char* cur = buf(r);
-    const int v = tid < OB ? cur[lay.ncnt + tid + 1] : 0;
+    const int v = tid < OB && (!COLS || c0 + tid < g.C) ? cur[lay.ncnt + tid + 1] : 0;
     int total;
     const int first = ppsim::block_exclusive_scan(v, wsum, &total);
     for (int k = 0; k < v; ++k) plist[first + k] = (uint16_t)(tid << 5 | k);
@@ -316,7 +341,8 @@ grid_tile_kernel(const float* __restrict__ xl, const float* __restrict__ yl,
         float x = __fadd_rn(sx, __fmul_rn(vxs, dt));
         float y = __fadd_rn(sy, __fmul_rn(vys, dt));
         wall_fold(x, vxs, row_off, L, twoL);
-        wall_fold(y, vys, __fmul_rn((float)(c0 + ob), g.bs), L, twoL);
+        wall_fold(y, vys, __fmul_rn((float)((COLS ? gh.col0 : 0) + c0 + ob), g.bs), L,
+                  twoL);
         o0[i] = x;
         o1[i] = y;
         o2[i] = vxs;
@@ -366,8 +392,15 @@ int launch(int law, const float* xl, const float* yl, const float* vx,
                                          g, t, gh, pp, dt, L);
     return (int)cudaGetLastError();
   };
-  const bool shard = gh.row0 != 0 || gh.tx || gh.bx;
+  const bool cols = gh.col0 != 0 || gh.wx || gh.ex;
+  const bool shard = cols || gh.row0 != 0 || gh.tx || gh.bx;
   if constexpr (MOVE) {
+    if (cols) {
+      if (law == (int)Law::kRepulsive)
+        return go(grid_tile_kernel<Law::kRepulsive, true, true, true>);
+      if (law == (int)Law::kLJ) return go(grid_tile_kernel<Law::kLJ, true, true, true>);
+      return (int)cudaErrorInvalidValue;
+    }
     if (shard) {
       if (law == (int)Law::kRepulsive)
         return go(grid_tile_kernel<Law::kRepulsive, true, true>);
@@ -387,30 +420,38 @@ extern "C" {
 
 // law 0 = repulsive, 1 = Lennard-Jones (pair_coef.cuh). A shard passes its
 // global row offset row0 and its ghost rows (gtx, gty: row -1; gbx, gby:
-// row R; each [cap][C]); null ghosts take the BIG fill. The launch plan
+// row R; each [cap][C]); a tile also its global column offset col0 and its
+// ghost columns (gwx, gwy: column -1; gex, gey: column C; each [cap][R + 2],
+// rows -1..R), which need the ghost rows; null ghosts take the BIG fill.
+// The launch plan
 // (strip width w, segment length, threads, blocks, shared bytes) must be
 // the one cuda_grid.step_plan gives for this shape; anything else returns
 // cudaErrorInvalidValue. Returns cudaGetLastError() after the launch
 // (0 = launched). cap <= 32.
 int ppsim_grid_step(const float* xl, const float* yl, const float* vx,
                     const float* vy, const float* gtx, const float* gty,
-                    const float* gbx, const float* gby, float* xo, float* yo,
-                    float* vxo, float* vyo, float* sp, int device, int cap,
-                    int R, int C, int row0, int law, int w, int seg,
+                    const float* gbx, const float* gby, const float* gwx,
+                    const float* gwy, const float* gex, const float* gey,
+                    float* xo, float* yo, float* vxo, float* vyo, float* sp,
+                    int device, int cap, int R, int C, int row0, int col0,
+                    int law, int w, int seg,
                     int threads, int blocks,
                     int smem, float bs, float c2, float cutoff, float mr2,
                     float inv_mass, float sig2, float lj_k, float mass,
                     float dt, float L, void* stream) {
   if (!plan_ok(cap, R, C, w, seg, threads, blocks, smem))
     return (int)cudaErrorInvalidValue;
-  if ((gtx == nullptr) != (gty == nullptr) || (gbx == nullptr) != (gby == nullptr))
+  if ((gtx == nullptr) != (gty == nullptr) || (gbx == nullptr) != (gby == nullptr) ||
+      (gwx == nullptr) != (gwy == nullptr) || (gex == nullptr) != (gey == nullptr))
     return (int)cudaErrorInvalidValue;
+  if ((gwx || gex) && !(gtx && gbx)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
   return launch<true>(law, xl, yl, vx, vy, xo, yo, vxo, vyo, sp,
                       Geo2{cap, R, C, bs}, Tile2{w, seg},
-                      Ghost2{gtx, gty, gbx, gby, row0}, threads, blocks, smem,
+                      Ghost2{gtx, gty, gbx, gby, row0, gwx, gwy, gex, gey, col0},
+                      threads, blocks, smem,
                       pp, dt, L, (cudaStream_t)stream);
 }
 
@@ -428,7 +469,9 @@ int ppsim_grid_force(const float* xl, const float* yl, float* ax, float* ay,
   const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
   return launch<false>(law, xl, yl, nullptr, nullptr, ax, ay, nullptr,
                        nullptr, nullptr, Geo2{cap, R, C, bs}, Tile2{w, seg},
-                       Ghost2{nullptr, nullptr, nullptr, nullptr, 0}, threads,
+                       Ghost2{nullptr, nullptr, nullptr, nullptr, 0, nullptr,
+                              nullptr, nullptr, nullptr, 0},
+                       threads,
                        blocks, smem, pp, 0.0f, 0.0f,
                        (cudaStream_t)stream);
 }

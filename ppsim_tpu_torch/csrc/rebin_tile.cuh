@@ -57,6 +57,20 @@
 // shard inputs are a template parameter (SHARD): an instance without them
 // compiles to the walk as it was before them.
 //
+// Tiles (K2 in the 2-D tile engine). A tile's columns are global columns
+// s0g .. s0g + S - 1: s0g enters every use of a strip index as a global one
+// (the clamp at the physical edge, in the masks and in resid). The strip
+// pass of column c reads the walk-settled columns c-1..c+2, so at a tile's
+// west and east edges the strip's halo takes column -1 and columns S and
+// S+1 from ghost columns of every plane (instead of treating them as
+// empty), over the rows the walk reads there: -1..W+1, row W+1 of the
+// walked coordinate and pid only, as for the ghost rows. The walked pass of
+// a ghost column is settled redundantly, like any halo bin: it derives the
+// owner's decisions from the same input, so a transfer across a column
+// boundary needs no handshake (the JAX argument, sharded_tile.py:31-35).
+// The count planes cover own bins only. The column inputs are a second
+// template parameter (COLS) beside SHARD; only the 2D walk takes them.
+//
 // Count planes. 2D: [far_pre, alive_pre, alive_post, resid]; 3D: [m-, alive,
 // m+, far_pre, alive_pre], the y pass's inputs of the xz-settled slab (K5
 // reads them) and the pre-rebin monitors.
@@ -142,6 +156,17 @@ struct RowGhosts {
   PlanesC<NF> top, bot;
 };
 
+// A tile's ghost columns (2D): west, column -1, [cap][W + 3][1]; east,
+// columns S and S+1, [cap][W + 3][2]; rows -1..W+1, for the walked
+// coordinate (plane 0) and pid; rows -1..W, [cap][W + 2][ncols], for the
+// others. Null pids: no ghost column that side. s0g: the global column of
+// strip index 0.
+template <int NF>
+struct ColGhosts {
+  PlanesC<NF> west, east;
+  int s0g;
+};
+
 // Offset, along its axis, of a source code's bin.
 __device__ __forceinline__ int src_off(int code) {
   return code == kLo ? -1 : (code == kHi ? 1 : 0);
@@ -175,17 +200,19 @@ __device__ __forceinline__ PassMoves moves_of(const Masks& mm, const Masks& m0,
                     cap - __popc(mp.alive), __popc(m2.neg), evac);
 }
 
-template <int NF, bool SHARD = false>
+template <int NF, bool SHARD = false, bool COLS = false>
 __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
                                            const Planes<NF> out,
                                            int* __restrict__ cnt,
                                            const RebinGeo g, const int T,
                                            const int seg,
-                                           const RowGhosts<NF>& gh = {}) {
+                                           const RowGhosts<NF>& gh = {},
+                                           const ColGhosts<NF>& gc = {}) {
   constexpr int NC = (NF - 1) / 2;  // coordinate fields
   constexpr int FS = NC - 1;        // the strip axis's coordinate field
   constexpr bool THREE = NF == 7;
   constexpr bool ROWS = SHARD && !THREE;  // ghost rows of the walked axis
+  constexpr bool TILE = COLS && ROWS;     // and ghost columns of the strip axis
   extern __shared__ __align__(16) unsigned char smem[];
   const RebinLayout lay = rebin_layout(NF, g.cap, T);
   const int cap = g.cap, HB = lay.hb, tid = threadIdx.x;
@@ -222,6 +249,12 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
   const int h = tid % HB, part = tid / HB;
   const int gs = s0 - 1 + h;
   const bool in_array = gs >= 0 && gs < g.S;
+  // a tile's ghost column -1, S or S+1, where given
+  const bool west = TILE && gs == -1 && gc.west.pid;
+  const bool east = TILE && (gs == g.S || gs == g.S + 1) && gc.east.pid;
+  const bool colg = west || east;
+  // the strip axis's global index of this halo bin
+  const int gsg = (TILE ? gc.s0g : 0) + gs;
 
   // rows held: the array's own, and the ghost rows -1, W and W+1 if given
   auto held = [&](int w) {
@@ -232,8 +265,27 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
   // the walked axis's global index of local row w
   auto gw = [&](int w) { return (ROWS ? g.w0 : 0) + w; };
   auto issue = [&](int w) {
-    if (!held(w) || part >= parts || !in_array) return;
+    if (!held(w) || part >= parts || !(in_array || colg)) return;
     unsigned char* b = buf(w);
+    if (TILE && colg) {
+      // a ghost column; as for the ghost rows, row W+1 carries the walked
+      // coordinate and pid only (pointers picked one by one)
+      const int nc = west ? 1 : 2, j = west ? 0 : gs - g.S;
+      for (int s = part; s < cap; s += parts) {
+        const int64_t i3 = ((int64_t)s * (g.W + 3) + w + 1) * nc + j;
+        const int64_t i2 = ((int64_t)s * (g.W + 2) + w + 1) * nc + j;
+        cp_async4(plane_of(b, 0) + s * HB + h, (west ? gc.west.f[0] : gc.east.f[0]) + i3);
+#pragma unroll
+        for (int k = 1; k < NF - 1; ++k) {
+          if (w <= g.W)
+            cp_async4(plane_of(b, k) + s * HB + h, (west ? gc.west.f[k] : gc.east.f[k]) + i2);
+          else
+            plane_of(b, k)[s * HB + h] = 0.0f;
+        }
+        cp_async4(pid_of(b) + s * HB + h, (west ? gc.west.pid : gc.east.pid) + i3);
+      }
+      return;
+    }
     if (!ROWS || (w >= 0 && w < g.W)) {
       const int64_t gb = ybase + (int64_t)w * g.S + gs;
       for (int s = part; s < cap; s += parts) {
@@ -270,7 +322,7 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
     unsigned char* b = buf(w);
     Masks mw, ms;
     uint32_t far = 0;
-    if (held(w) && in_array) {
+    if (held(w) && (in_array || colg)) {
       const int* pid = pid_of(b);
 #pragma unroll 4
       for (int s = 0; s < cap; ++s) {
@@ -285,7 +337,7 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
         const uint32_t bit = 1u << s;
         mw.alive |= bit;
         const int dw = clamp_dir(raw[0], gw(w), g.nw);
-        const int ds = clamp_dir(raw[FS], gs, g.ns);
+        const int ds = clamp_dir(raw[FS], gsg, g.ns);
         if (dw < 0) mw.neg |= bit;
         if (dw > 0) mw.pos |= bit;
         if (ds < 0) ms.neg |= bit;
@@ -321,7 +373,7 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
     // along the strip axis
     if (tid < HB) {
       Masks sm;
-      if (in_array) {
+      if (in_array || colg) {
         const uint32_t* M0 = masks(buf(w));
         const Masks m0 = mask_at(M0, HB, h);
         const PassMoves pm = moves_of(mask_at(masks(buf(w - 1)), HB, h), m0,
@@ -428,7 +480,7 @@ __device__ __forceinline__ void rebin_tile(const PlanesC<NF> in,
         if (dy > 0) atomicAdd(&mon[T + o], 1);
       } else {
         if (dir1(v[0], gw(w), g.nw, g.inv[0]) != 0 ||
-            dir1(v[FS], s0 + o, g.ns, g.inv[FS]) != 0)
+            dir1(v[FS], (TILE ? gc.s0g : 0) + s0 + o, g.ns, g.inv[FS]) != 0)
           atomicAdd(&mon[o], 1);
       }
     }

@@ -10,7 +10,9 @@
   shard mesh (``engines/mesh.py``: in one process, or one process a shard
   over ``torch.distributed``), on the kernels' shard forms;
 - ``sharded_grid3d`` — the 3D slab-grid engine split into y strips over the
-  same mesh, on the shard forms of the 3D kernels.
+  same mesh, on the shard forms of the 3D kernels;
+- ``sharded_tile`` — the 2D slab-grid engine cut into tiles along both bin
+  axes over a 2-D mesh, on the tile forms of K1 and K2.
 """
 
 from ppsim_tpu_torch.engines.base import (
@@ -20,5 +22,6 @@ from ppsim_tpu_torch.engines import grid as _grid  # noqa: F401  (registration)
 from ppsim_tpu_torch.engines import grid3d as _grid3d  # noqa: F401  (registration)
 from ppsim_tpu_torch.engines import sharded_grid as _sharded_grid  # noqa: F401  (registration)
 from ppsim_tpu_torch.engines import sharded_grid3d as _sharded_grid3d  # noqa: F401  (registration)
+from ppsim_tpu_torch.engines import sharded_tile as _sharded_tile  # noqa: F401  (registration)
 
 __all__ = ["Engine", "RunResult", "engine_names", "get_engine", "register_engine"]

@@ -76,6 +76,9 @@ class ShardedGridEngine(GridEngine):
         if impl not in ("cuda", "plain"):
             raise ValueError(f"unknown sharded_grid impl {impl!r} (cuda | plain)")
         mesh = mesh_for(device, shards) if mesh is None else mesh
+        if mesh.shape[1] != 1:
+            raise ValueError(f"sharded_grid runs on row strips, a (P, 1) mesh; "
+                             f"got {mesh.shape} (sharded_tile cuts columns)")
         super().__init__(config, device=mesh.device)
         self.mesh = mesh
         self.P = mesh.size

@@ -67,6 +67,9 @@ class ShardedGrid3DEngine(Grid3DEngine):
         if impl not in ("cuda", "plain"):
             raise ValueError(f"unknown sharded_grid3d impl {impl!r} (cuda | plain)")
         mesh = mesh_for(device, shards) if mesh is None else mesh
+        if mesh.shape[1] != 1:
+            raise ValueError(f"sharded_grid3d runs on y strips, a (P, 1) mesh; "
+                             f"got {mesh.shape}")
         super().__init__(config, device=mesh.device)
         self.mesh = mesh
         self.P = mesh.size

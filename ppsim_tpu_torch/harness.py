@@ -15,11 +15,12 @@ after ``torch.cuda.synchronize()``.
     python -m ppsim_tpu_torch -n 20971520 -s 42 --engine sharded_grid --shards 4
     python -m ppsim_tpu_torch -n 20971520 --ndim 3 --density 7e-6 \
         --force-law lj --dt 1e-4 -s 42 --engine sharded_grid3d --shards 4
+    python -m ppsim_tpu_torch -n 20971520 -s 42 --engine sharded_tile --shards 4
     torchrun --nproc-per-node 2 -m ppsim_tpu_torch -n 262144 --engine sharded_grid
 
-Under ``torchrun`` (``WORLD_SIZE`` set) ``sharded_grid`` and
-``sharded_grid3d`` run one shard a
-process over ``torch.distributed`` (NCCL on the cards, gloo with ``--device
+Under ``torchrun`` (``WORLD_SIZE`` set) ``sharded_grid``, ``sharded_grid3d``
+and ``sharded_tile`` (on the near-square mesh of the world size) run one
+shard a process over ``torch.distributed`` (NCCL on the cards, gloo with ``--device
 cpu``); every process runs the same program and rank 0 alone prints and
 writes.
 """
@@ -112,7 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "3D) or auto (reference in 2D, fast in 3D; a random "
                         "seed for -s 0)")
     p.add_argument("--shards", type=int, default=None, metavar="N",
-                   help="sharded_grid / sharded_grid3d: N row (y) strips "
+                   help="sharded_grid / sharded_grid3d: N row (y) strips, "
+                        "sharded_tile: N tiles on the near-square mesh, "
                         "held in this process "
                         "(the JAX CLI's --cpu-mesh N; default 1, or one "
                         "process a shard under torchrun)")
@@ -215,8 +217,9 @@ def main(argv=None) -> int:
     engine_name = args.engine or ("cuda3d" if args.ndim == 3 else "cuda")
     options = {}
     if args.shards is not None:
-        if engine_name not in ("sharded_grid", "sharded_grid3d"):
-            parser.error("--shards applies to --engine sharded_grid or sharded_grid3d")
+        if engine_name not in ("sharded_grid", "sharded_grid3d", "sharded_tile"):
+            parser.error("--shards applies to --engine sharded_grid, sharded_grid3d "
+                         "or sharded_tile")
         options["shards"] = args.shards
     try:
         engine = get_engine(engine_name, config, device=args.device, **options)

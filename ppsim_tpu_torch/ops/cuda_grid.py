@@ -10,6 +10,13 @@
   neighbouring shards' boundary rows ``(top_xl, top_yl, bot_xl, bot_yl)``,
   each (cap, 1, C) float32, which take the place of the BIG fill above and
   below the planes. K1 is owner-computes, so a ghost row is only read.
+- and a tile's (the 2-D tile engine, ``engines/sharded_tile.py``): also
+  ``col0``, the global column of the planes' first column, and
+  ``col_ghosts``, the boundary columns of the tiles beside
+  ``(west_xl, west_yl, east_xl, east_yl)``, each (cap, R + 2, 1) float32:
+  rows -1..R of the row-extended neighbour, so the corners come with them.
+  They take the place of the fill left and right of the planes and need the
+  ghost rows.
 - :func:`grid_force_cuda` launches K6 (the same file: the accelerations
   only; it replaces ``grid_force_pallas``); plain twin
   :func:`grid_force_plain`.
@@ -171,23 +178,31 @@ def grid_force_plain(xl, yl, geom: SlabGeometry, cutoff, min_r, mass,
 
 def grid_step_plain(xl, yl, vx, vy, geom: SlabGeometry, cutoff, min_r, mass,
                     dt, size, law="repulsive", law_params=(), row0=0,
-                    ghosts=None):
+                    ghosts=None, col0=0, col_ghosts=None):
     """Plain twin of K1: :func:`grid_force_plain` + the move, returning
     ``(xl', yl', vx', vy', speed2)`` with ``speed2`` the (R, C) plane of
     per-bin max |v|^2. Like the kernel (and the TPU kernel), slot aliveness
     comes from the position sentinel: dead slots hold exactly BIG. With
-    ``ghosts`` the force runs on the planes extended by the ghost rows and
+    ``ghosts`` the force runs on the planes extended by the ghost rows (and
+    with ``col_ghosts`` by the ghost columns: the ring with its corners) and
     the interior is kept (the JAX package's ``_local_plain_xla``); ``row0``
-    enters the move's wall fold."""
+    and ``col0`` enter the move's wall fold."""
     if ghosts is None:
+        if col_ghosts is not None:
+            raise ValueError("K1's ghost columns need its ghost rows")
         ax, ay = grid_force_plain(xl, yl, geom, cutoff, min_r, mass, law, law_params)
     else:
         tx, ty, bx, by = ghosts
-        ax, ay = (a[:, 1:-1] for a in grid_force_plain(
-            torch.cat([tx, xl, bx], 1), torch.cat([ty, yl, by], 1), geom,
-            cutoff, min_r, mass, law, law_params))
+        xe, ye = torch.cat([tx, xl, bx], 1), torch.cat([ty, yl, by], 1)
+        cols = slice(None)
+        if col_ghosts is not None:
+            wx, wy, ex, ey = col_ghosts
+            xe, ye = torch.cat([wx, xe, ex], 2), torch.cat([wy, ye, ey], 2)
+            cols = slice(1, -1)
+        ax, ay = (a[:, 1:-1, cols] for a in grid_force_plain(
+            xe, ye, geom, cutoff, min_r, mass, law, law_params))
     xl, yl, vx, vy, speed2 = move_planes(xl, yl, vx, vy, ax, ay,
-                                         xl < 0.5 * BIG, geom, dt, size, row0)
+                                         xl < 0.5 * BIG, geom, dt, size, row0, col0)
     return xl, yl, vx, vy, speed2.amax(dim=0)
 
 
@@ -206,9 +221,10 @@ def _check_planes(planes, shape, dtype=torch.float32) -> None:
 
 
 def slab_shape(geom: SlabGeometry, planes) -> Tuple[int, int, int]:
-    """(cap, R, C) of slab planes: the rows are the planes' own (a shard's
-    rows, or the geometry's padded rows), the columns the geometry's."""
-    return geom.capacity, planes.shape[1], geom.cols_pad
+    """(cap, R, C) of slab planes: the rows and columns are the planes' own
+    (a shard's or a tile's, or the geometry's padded extents), the slots the
+    geometry's."""
+    return geom.capacity, planes.shape[1], planes.shape[2]
 
 
 def _ptrs(ghosts, n: int):
@@ -229,18 +245,22 @@ def check_ghosts(ghosts, shapes, device, dtypes=None) -> None:
 
 def grid_step_cuda(xl, yl, vx, vy, geom: SlabGeometry, cutoff, min_r, mass,
                    dt, size, law="repulsive", law_params=(), row0=0,
-                   ghosts=None):
+                   ghosts=None, col0=0, col_ghosts=None):
     """Fused step, same contract as :func:`grid_step_plain`. CUDA tensors
     launch K1 (``grid_step_cuda.launches`` counts the launches); CPU tensors
     run the plain twin."""
     if xl.device.type == "cpu":
         return grid_step_plain(xl, yl, vx, vy, geom, cutoff, min_r, mass, dt,
-                               size, law, law_params, row0, ghosts)
+                               size, law, law_params, row0, ghosts, col0, col_ghosts)
     shape = slab_shape(geom, xl)
     _check_planes((xl, yl, vx, vy), shape)
     cap, R, C = shape
     if ghosts is not None:
         check_ghosts(ghosts, [(cap, 1, C)] * 4, xl.device)
+    if col_ghosts is not None:
+        if ghosts is None:
+            raise ValueError("K1's ghost columns need its ghost rows")
+        check_ghosts(col_ghosts, [(cap, R + 2, 1)] * 4, xl.device)
     if cap > MAX_CAP:
         raise ValueError(f"capacity {cap} > {MAX_CAP}, the kernel's largest")
     law_id, *consts = pair_args(law, cutoff, min_r, mass, law_params)
@@ -250,8 +270,8 @@ def grid_step_cuda(xl, yl, vx, vy, geom: SlabGeometry, cutoff, min_r, mass,
     lib = _build.kernels()
     err = lib.ppsim_grid_step(
         *(t.data_ptr() for t in (xl, yl, vx, vy)), *_ptrs(ghosts, 4),
-        *(t.data_ptr() for t in (*outs, speed2)),
-        xl.device.index, cap, R, C, int(row0), law_id, *plan.tile, plan.seg,
+        *_ptrs(col_ghosts, 4), *(t.data_ptr() for t in (*outs, speed2)),
+        xl.device.index, cap, R, C, int(row0), int(col0), law_id, *plan.tile, plan.seg,
         plan.threads, plan.blocks, plan.smem, f32(geom.bin_size), *consts,
         f32(dt), f32(size), torch.cuda.current_stream(xl.device).cuda_stream)
     _build.check_launch(err, "grid_step kernel")

@@ -31,6 +31,19 @@ at w-1..w+1); K8 takes 1 field row each side and 2 count rows each side
 single-device twin on the planes extended by the ghost rows and keep the
 interior. Without ghosts the call is the single-device one.
 
+Tile forms (the 2-D tile engine, ``engines/sharded_tile.py``): K2's wrapper
+and twin also take ``col0``, the global column of the planes' first column,
+and ``col_ghosts``, a (west, east) pair per field in the same order: the
+last column of the tile to the west and the first two columns of the tile
+to the east, cut from the row-extended neighbours, so over rows -1..R+1 for
+xl and pid ((cap, R + 3, 1) and (cap, R + 3, 2)) and rows -1..R for the
+others ((cap, R + 2, w)). These are the columns K2's walk reads beyond a
+tile (its strip pass reads the walk-settled columns c-1..c+2); the JAX
+package's pallas route carries 2 a side (``sharded_tile.py:301``). They need
+the ghost rows. The count planes cover own bins only. The dirs9 rebin has
+no tile form: the tile engine runs it on the torch ops, as the JAX engine
+runs it on its XLA route.
+
 ``cnt`` is the int32 (4, R, C) monitor stack ``[far_pre, alive_pre,
 alive_post, resid]`` in both modes (``grid_ops.monitor_planes``), so
 :func:`grid_rebin_cuda` reports the monitors of the JAX package's
@@ -158,35 +171,65 @@ def _ghost_ptrs(field_ghosts, shape, bot_rows, device):
     return _ptrs(tops, 5) + _ptrs(bots, 5)
 
 
+def _below_zero(t, rows: int):
+    """``t`` with a zero row appended below where it has ``rows`` rows: the
+    ghost row R+1 of the planes that carry only rows up to R."""
+    return torch.cat([t, torch.zeros_like(t[:, :1])], 1) if t.shape[1] == rows else t
+
+
 def rebin_axes_call_plain(state: SlabState, geom: SlabGeometry, evac_cap: int,
-                          row0=0, field_ghosts=None):
+                          row0=0, field_ghosts=None, col0=0, col_ghosts=None):
     """Plain twin of K2: ``grid_ops.rebin_axes_planes``; with
     ``field_ghosts``, on the planes extended by the ghost rows (1 row above;
     2 below, where row R+1 carries xl and pid only: the x pass reads no
-    other field there, so they are zero), keeping the interior."""
+    other field there, so they are zero), and with ``col_ghosts`` also by
+    the ghost columns (1 west, 2 east), keeping the interior."""
     if field_ghosts is None:
-        return rebin_axes_planes(state, geom, evac_cap, row0)
-    R = state.xl.shape[1]
+        if col_ghosts is not None:
+            raise ValueError("K2's ghost columns need its ghost rows")
+        return rebin_axes_planes(state, geom, evac_cap, row0, col0)
+    R, C = state.xl.shape[1:]
     ext = []
-    for f, (top, bot) in zip(state, field_ghosts):
-        if bot.shape[1] == 1:
-            bot = torch.cat([bot, torch.zeros_like(bot)], 1)
-        ext.append(torch.cat([top, f, bot], 1))
-    st = _axis_pass2(SlabState(*ext), geom, evac_cap, 0, row0 - 1)
-    st = _axis_pass2(st, geom, evac_cap, 1, row0 - 1)
-    new = SlabState(*(f[:, 1:R + 1].contiguous() for f in st))
-    return new, monitor_planes(state, new, geom, row0)
+    for k, (f, (top, bot)) in enumerate(zip(state, field_ghosts)):
+        e = torch.cat([top, f, _below_zero(bot, 1)], 1)
+        if col_ghosts is not None:
+            west, east = col_ghosts[k]
+            e = torch.cat([_below_zero(west, R + 2), e, _below_zero(east, R + 2)], 2)
+        ext.append(e)
+    c0 = col0 if col_ghosts is None else col0 - 1
+    st = _axis_pass2(SlabState(*ext), geom, evac_cap, 0, row0 - 1, c0)
+    st = _axis_pass2(st, geom, evac_cap, 1, row0 - 1, c0)
+    cols = slice(None) if col_ghosts is None else slice(1, C + 1)
+    new = SlabState(*(f[:, 1:R + 1, cols].contiguous() for f in st))
+    return new, monitor_planes(state, new, geom, row0, col0)
+
+
+def _col_ghost_ptrs(col_ghosts, shape, device):
+    """Checked device pointers of K2's ``col_ghosts`` (west planes, then
+    east planes; zeros without them)."""
+    if col_ghosts is None:
+        return (0,) * 10
+    cap, R, _ = shape
+    wests, easts = zip(*col_ghosts)
+    rows = [R + 3 if k in (0, 4) else R + 2 for k in range(5)]
+    check_ghosts(wests, [(cap, n, 1) for n in rows], device, _FIELD_DTYPES)
+    check_ghosts(easts, [(cap, n, 2) for n in rows], device, _FIELD_DTYPES)
+    return _ptrs(wests, 5) + _ptrs(easts, 5)
 
 
 def rebin_axes_call_cuda(state: SlabState, geom: SlabGeometry, evac_cap: int,
-                         row0=0, field_ghosts=None):
+                         row0=0, field_ghosts=None, col0=0, col_ghosts=None):
     """K2 on CUDA tensors (``rebin_axes_call_cuda.launches`` counts the
     launches, one a call); the plain twin on CPU tensors."""
     if state.xl.device.type == "cpu":
-        return rebin_axes_call_plain(state, geom, evac_cap, row0, field_ghosts)
+        return rebin_axes_call_plain(state, geom, evac_cap, row0, field_ghosts,
+                                     col0, col_ghosts)
     shape = _check_slab(state, geom)
     cap, R, C = shape
+    if col_ghosts is not None and field_ghosts is None:
+        raise ValueError("K2's ghost columns need its ghost rows")
     ghosts = _ghost_ptrs(field_ghosts, shape, (2, 1, 1, 1, 2), state.xl.device)
+    cghosts = _col_ghost_ptrs(col_ghosts, shape, state.xl.device)
     plan = rebin_plan(shape)
     # The output slab and the count planes are fresh buffers; the input slab
     # is left untouched.
@@ -194,10 +237,10 @@ def rebin_axes_call_cuda(state: SlabState, geom: SlabGeometry, evac_cap: int,
     cnt = torch.empty((4, R, C), dtype=torch.int32, device=state.xl.device)
     lib = _build.kernels()
     err = lib.ppsim_rebin_axes(
-        *(t.data_ptr() for t in state), *ghosts,
+        *(t.data_ptr() for t in state), *ghosts, *cghosts,
         *(t.data_ptr() for t in (*out, cnt)),
-        state.xl.device.index, cap, R, C, int(row0), geom.rows, geom.cols, evac_cap,
-        *plan.tile, plan.seg, plan.threads, plan.blocks, plan.smem,
+        state.xl.device.index, cap, R, C, int(row0), int(col0), geom.rows, geom.cols,
+        evac_cap, *plan.tile, plan.seg, plan.threads, plan.blocks, plan.smem,
         f32(geom.bin_size), f32(1.0 / geom.bin_size),
         torch.cuda.current_stream(state.xl.device).cuda_stream)
     _build.check_launch(err, "rebin_axes kernel")

@@ -295,10 +295,11 @@ def _reflect(local, off, v, L: float):
 
 
 def move_planes(xl, yl, vx, vy, ax, ay, alive, geom: SlabGeometry, dt, size,
-                row0=0):
+                row0=0, col0=0):
     """Verlet + wall reflection on slab planes (reference:
     part1/serial.cpp:44-61); empty slots stay at BIG with zero velocity.
-    ``row0`` is the global row of the planes' first row (a shard's offset).
+    ``row0`` / ``col0`` are the global row / column of the planes' first row
+    / column (a shard's offsets).
     Returns (xl, yl, vx, vy, speed2) with speed2 the (cap, R, C) |v|^2
     planes (0 on empty slots)."""
     bs = f32(geom.bin_size)
@@ -310,7 +311,7 @@ def move_planes(xl, yl, vx, vy, ax, ay, alive, geom: SlabGeometry, dt, size,
     yl = yl + vy * dtf
     shape, dev = xl.shape, xl.device
     row_off = (row0 + _iota(shape, 1, dev)).to(torch.float32) * bs
-    col_off = _iota(shape, 2, dev).to(torch.float32) * bs
+    col_off = (col0 + _iota(shape, 2, dev)).to(torch.float32) * bs
     xl, vx = _reflect(xl, row_off, vx, L)
     yl, vy = _reflect(yl, col_off, vy, L)
     xl = torch.where(alive, xl, BIG)
@@ -319,23 +320,25 @@ def move_planes(xl, yl, vx, vy, ax, ay, alive, geom: SlabGeometry, dt, size,
     return xl, yl, vx, vy, speed2
 
 
-def grid_move(state: SlabState, accel, geom: SlabGeometry, dt, size, row0=0):
-    """Verlet + wall reflection on the slab grid (``row0``: the global row
-    of the state's first row); returns (new_state, max_speed scalar
-    tensor)."""
+def grid_move(state: SlabState, accel, geom: SlabGeometry, dt, size, row0=0,
+              col0=0):
+    """Verlet + wall reflection on the slab grid (``row0`` / ``col0``: the
+    global row / column of the state's first row / column); returns
+    (new_state, max_speed scalar tensor)."""
     ax, ay = accel
     xl, yl, vx, vy, speed2 = move_planes(
         state.xl, state.yl, state.vx, state.vy, ax, ay, state.pid >= 0,
-        geom, dt, size, row0)
+        geom, dt, size, row0, col0)
     return SlabState(xl, yl, vx, vy, state.pid), torch.sqrt(speed2.max())
 
 
 # ------------------------------------------------------------------- rebin
-def slab_dirs(state: SlabState, geom: SlabGeometry, row0=0):
+def slab_dirs(state: SlabState, geom: SlabGeometry, row0=0, col0=0):
     """Per-slot movement direction (clamped to one hop and to the physical
     grid) plus the far-move flag and aliveness. Empty slots get 0. ``row0``
-    is the global row of the state's first row (a shard's offset): the clamp
-    at the physical edge ``geom.rows`` takes the global row."""
+    / ``col0`` are the global row / column of the state's first row / column
+    (a shard's offsets): the clamps at the physical edges ``geom.rows`` and
+    ``geom.cols`` take the global indices."""
     inv_bs = f32(1.0 / geom.bin_size)
     alive = state.pid >= 0
     zero = torch.zeros((), dtype=torch.int32, device=state.xl.device)
@@ -348,7 +351,7 @@ def slab_dirs(state: SlabState, geom: SlabGeometry, row0=0):
     # Never step off the physical grid: clamp at boundary rows/cols.
     shape, dev = dirx.shape, dirx.device
     row = row0 + _iota(shape, 1, dev)
-    col = _iota(shape, 2, dev)
+    col = col0 + _iota(shape, 2, dev)
     dirx = torch.minimum(torch.maximum(dirx, -torch.clamp(row, max=1)),
                          torch.clamp(geom.rows - 1 - row, max=1))
     diry = torch.minimum(torch.maximum(diry, -torch.clamp(col, max=1)),
@@ -359,11 +362,11 @@ def slab_dirs(state: SlabState, geom: SlabGeometry, row0=0):
     return dirx, diry, far, alive
 
 
-def rebin_counts(state: SlabState, geom: SlabGeometry, row0=0):
+def rebin_counts(state: SlabState, geom: SlabGeometry, row0=0, col0=0):
     """The dirs9 count stack and the far-move flags: ``(counts, far)`` with
     ``counts`` the int32 (9, R, C) planes, [d] = live slots moving toward
     ``DIRS[d]`` and [4] (the stay direction) = the live count."""
-    dirx, diry, far, alive = slab_dirs(state, geom, row0)
+    dirx, diry, far, alive = slab_dirs(state, geom, row0, col0)
     planes = [(alive if (dr, dc) == (0, 0)
                else alive & (dirx == dr) & (diry == dc)).sum(dim=0, dtype=torch.int32)
               for dr, dc in DIRS]
@@ -371,7 +374,7 @@ def rebin_counts(state: SlabState, geom: SlabGeometry, row0=0):
 
 
 def rebin_shuffle(state: SlabState, counts, geom: SlabGeometry, evac_cap: int,
-                  row0=0):
+                  row0=0, col0=0):
     """The loss-free 9-direction dense shuffle, given the state's
     :func:`rebin_counts`. Returns ``(SlabState, rejected)`` with ``rejected``
     the int32 (R, C) plane of leavers kept in place. The plain twin of the
@@ -392,7 +395,7 @@ def rebin_shuffle(state: SlabState, counts, geom: SlabGeometry, evac_cap: int,
     cap = geom.capacity
     bs = f32(geom.bin_size)
     i32 = torch.int32
-    dirx, diry, _, alive = slab_dirs(state, geom, row0)
+    dirx, diry, _, alive = slab_dirs(state, geom, row0, col0)
     dcode = (dirx + 1) * 3 + (diry + 1)
     F = cap - counts[4]  # pre-rebin empty slots per bin
 
@@ -450,13 +453,14 @@ def rebin_shuffle(state: SlabState, counts, geom: SlabGeometry, evac_cap: int,
     return SlabState(*(torch.stack(o) for o in outs)), rejected
 
 
-def grid_rebin(state: SlabState, geom: SlabGeometry, evac_cap: int, row0=0):
+def grid_rebin(state: SlabState, geom: SlabGeometry, evac_cap: int, row0=0,
+               col0=0):
     """The 9-direction rebin with the JAX package's monitors
     (``grid_ops.grid_rebin``): ``deferred`` counts the leavers rejected
     before the shuffle, ``dropped`` = particles lost + far movers (flagged on
     the pre-rebin state), ``max_occupancy`` after the rebin. Sums in int64."""
-    counts, far = rebin_counts(state, geom, row0)
-    new, rejected = rebin_shuffle(state, counts, geom, evac_cap, row0)
+    counts, far = rebin_counts(state, geom, row0, col0)
+    new, rejected = rebin_shuffle(state, counts, geom, evac_cap, row0, col0)
     i64 = torch.int64
     occ = (new.pid >= 0).sum(dim=0, dtype=torch.int32)
     dropped = counts[4].sum(dtype=i64) - occ.sum(dtype=i64) + far.sum(dtype=i64)
@@ -465,7 +469,7 @@ def grid_rebin(state: SlabState, geom: SlabGeometry, evac_cap: int, row0=0):
 
 
 def _axis_pass2(state: SlabState, geom: SlabGeometry, evac_cap: int, axis: int,
-                row0=0):
+                row0=0, col0=0):
     """One 1-D rebin pass along ``axis`` (0 = rows/x, 1 = cols/y): movers
     take one hop under the loss-free acceptance contract, rejected movers
     stay in place. Returns the new state.
@@ -482,7 +486,7 @@ def _axis_pass2(state: SlabState, geom: SlabGeometry, evac_cap: int, axis: int,
     """
     cap = geom.capacity
     bs = f32(geom.bin_size)
-    dirx, diry, _, alive = slab_dirs(state, geom, row0)
+    dirx, diry, _, alive = slab_dirs(state, geom, row0, col0)
     adir = (dirx, diry)[axis]
 
     def shift(f, d, fill):
@@ -543,7 +547,7 @@ def _axis_pass2(state: SlabState, geom: SlabGeometry, evac_cap: int, axis: int,
 
 
 def rebin_axes_planes(state: SlabState, geom: SlabGeometry, evac_cap: int,
-                      row0=0):
+                      row0=0, col0=0):
     """Axis-factorized 2D rebin, rows (x) pass then cols (y) pass, returning
     ``(SlabState, cnt)`` with ``cnt`` the int32 (4, R, C) monitor planes
     ``[far_pre, alive_pre, alive_post, resid]`` per bin. The plain twin of
@@ -553,18 +557,19 @@ def rebin_axes_planes(state: SlabState, geom: SlabGeometry, evac_cap: int,
     PRE-rebin state: each pass clamps to one hop, so afterwards they would
     look like benign movers. ``resid`` counts movers left after both passes.
     """
-    st = _axis_pass2(state, geom, evac_cap, 0, row0)
-    st = _axis_pass2(st, geom, evac_cap, 1, row0)
-    return st, monitor_planes(state, st, geom, row0)
+    st = _axis_pass2(state, geom, evac_cap, 0, row0, col0)
+    st = _axis_pass2(st, geom, evac_cap, 1, row0, col0)
+    return st, monitor_planes(state, st, geom, row0, col0)
 
 
-def monitor_planes(pre: SlabState, post: SlabState, geom: SlabGeometry, row0=0):
+def monitor_planes(pre: SlabState, post: SlabState, geom: SlabGeometry, row0=0,
+                   col0=0):
     """The int32 (4, R, C) monitor planes of a rebin from ``pre`` to
     ``post``: ``[far_pre, alive_pre, alive_post, resid]``, ``resid`` = live
     slots of ``post`` still pointing out of their bin."""
     i32 = torch.int32
-    _, _, far0, alive0 = slab_dirs(pre, geom, row0)
-    dx2, dy2, _, alive2 = slab_dirs(post, geom, row0)
+    _, _, far0, alive0 = slab_dirs(pre, geom, row0, col0)
+    dx2, dy2, _, alive2 = slab_dirs(post, geom, row0, col0)
     return torch.stack([
         far0.sum(dim=0, dtype=i32),
         alive0.sum(dim=0, dtype=i32),
@@ -585,7 +590,8 @@ def monitors_of_counts(cnt) -> RebinMonitors:
                          resid.sum(dtype=torch.int64).to(torch.int32))
 
 
-def grid_rebin_axes(state: SlabState, geom: SlabGeometry, evac_cap: int, row0=0):
+def grid_rebin_axes(state: SlabState, geom: SlabGeometry, evac_cap: int, row0=0,
+                    col0=0):
     """Axis-factorized 2D rebin with its monitors (see :func:`rebin_axes_planes`)."""
-    st, cnt = rebin_axes_planes(state, geom, evac_cap, row0)
+    st, cnt = rebin_axes_planes(state, geom, evac_cap, row0, col0)
     return st, monitors_of_counts(cnt)

@@ -15,7 +15,8 @@ from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, SlabState
 __all__ = ["STRESS_GEOMETRY", "stress_slab", "STRESS_GEOMETRY3", "stress_slab3",
            "STEP_SLAB_KINDS", "step_slab", "REBIN_EDGE_GEOMETRY",
            "REBIN_EDGE_GEOMETRY3", "rebin_edge_slab", "SHARD_EDGE_GEOMETRY",
-           "shard_edge_slab", "SHARD_EDGE_GEOMETRY3", "shard_edge_slab3"]
+           "shard_edge_slab", "SHARD_EDGE_GEOMETRY3", "shard_edge_slab3",
+           "TILE_EDGE_GEOMETRY", "tile_edge_slab"]
 
 # 13 x 100 physical bins padded to 16 x 128, capacity 4: the JAX package's
 # contention geometry (tests/test_grid_ops.py).
@@ -243,6 +244,12 @@ def rebin_edge_slab(geom, plan, seed: int = 0, device="cpu"):
 # sharded engine pads rows to P strips of a multiple of 8.
 SHARD_EDGE_GEOMETRY = SlabGeometry(rows=29, cols=70, rows_pad=32, cols_pad=128,
                                    capacity=4, bin_size=0.05)
+# 29 x 27 physical bins in 32 x 32, capacity 4: tiles of 16 x 16 (2 x 2)
+# or 32 x 8 (1 x 4), the last row and column of tiles ragged, as the tile
+# engine pads to tiles of a multiple of 8 rows and of col_block columns
+# (col_block 8 here, as in the JAX package's tests).
+TILE_EDGE_GEOMETRY = SlabGeometry(rows=29, cols=27, rows_pad=32, cols_pad=32,
+                                  capacity=4, bin_size=0.05)
 
 
 def shard_edge_slab(geom: SlabGeometry, shards: int, seed: int = 0,
@@ -256,15 +263,34 @@ def shard_edge_slab(geom: SlabGeometry, shards: int, seed: int = 0,
     so nothing is dropped. With ``contention`` those rows hold ``capacity -
     1`` or ``capacity``: the movers across a boundary compete for at most
     one free slot a bin, and the rest are deferred, never dropped."""
+    return _edge_slab(geom, (shards, 1), seed, contention, device)
+
+
+def tile_edge_slab(geom: SlabGeometry, mesh_shape, seed: int = 0,
+                   contention: bool = False, device="cpu") -> SlabState:
+    """:func:`shard_edge_slab` for the (Pr, Pc) tiles of ``mesh_shape``
+    (``rows_pad // Pr`` x ``cols_pad // Pc`` bins): the first and last
+    columns of each tile (and the columns beside them) are as full as its
+    first and last rows, so movers cross every tile boundary both ways and
+    diagonally, and where four tiles meet."""
+    return _edge_slab(geom, tuple(mesh_shape), seed, contention, device)
+
+
+def _edge_slab(geom, mesh_shape, seed, contention, device) -> SlabState:
     rng = np.random.default_rng(seed)
     cap, R, C = geom.shape
-    rl = R // shards
+    pr, pc = mesh_shape
+    rl, cl = R // pr, C // pc
     occ = rng.integers(0, cap + 1, size=(R, C))
     lo = cap - 1 if contention else cap - 2
-    for d in range(shards):
+    for d in range(pr):
         for r in (d * rl - 1, d * rl, d * rl + 1, d * rl + rl - 2, d * rl + rl - 1):
             if 0 <= r < R:
                 occ[r] = rng.integers(lo, cap + 1, size=C)
+    for d in range(pc if pc > 1 else 0):
+        for c in (d * cl - 1, d * cl, d * cl + 1, d * cl + cl - 2, d * cl + cl - 1):
+            if 0 <= c < C:
+                occ[:, c] = rng.integers(lo, cap + 1, size=R)
     occ[geom.rows:] = 0
     occ[:, geom.cols:] = 0
     rank = np.argsort(np.argsort(rng.random((cap, R, C)), axis=0), axis=0)

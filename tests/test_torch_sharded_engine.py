@@ -179,7 +179,7 @@ def test_sharded_modules_and_chip_smoke_never_import_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['ppsim_tpu'] = None\n"
         "import ppsim_tpu_torch.engines.sharded_grid, ppsim_tpu_torch.engines.mesh\n"
-        "import ppsim_tpu_torch.engines.sharded_grid3d\n"
+        "import ppsim_tpu_torch.engines.sharded_grid3d, ppsim_tpu_torch.engines.sharded_tile\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )

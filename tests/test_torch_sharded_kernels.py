@@ -1,10 +1,11 @@
-"""The shard forms of K1, K2, K7 and K8 (row offset and ghost rows) and of
-K3, K4 and K5 (y offset and ghost y slabs) on the card: each against its
-plain twin with the same ghosts, and against the rows of the single-device
-kernel's output on the whole slab; the entry points' refusal of half the
-ghosts; and the ``sharded_grid`` and ``sharded_grid3d`` engines against the
-single-device ``cuda`` and ``cuda3d`` engines. This file imports no JAX, so
-it runs on a GPU host without it:
+"""The shard forms of K1, K2, K7 and K8 (row offset and ghost rows), of K3,
+K4 and K5 (y offset and ghost y slabs) and the tile forms of K1 and K2 (row
+and column offsets, ghost rows and columns) on the card: each against its
+plain twin with the same ghosts, and against the rows (bins) of the
+single-device kernel's output on the whole slab; the entry points' refusal
+of half the ghosts; and the ``sharded_grid``, ``sharded_grid3d`` and
+``sharded_tile`` engines against the single-device ``cuda`` and ``cuda3d``
+engines. This file imports no JAX, so it runs on a GPU host without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_sharded_kernels.py
 
@@ -20,7 +21,9 @@ import torch
 
 from ppsim_tpu_torch import _build
 from ppsim_tpu_torch.config import SimConfig
-from ppsim_tpu_torch.convert import shards3_from_numpy, shards_from_numpy, shards_to_numpy
+from ppsim_tpu_torch.convert import (
+    shards3_from_numpy, shards_from_numpy, shards_to_numpy, tiles_from_numpy, tiles_to_numpy,
+)
 from ppsim_tpu_torch.engines import get_engine
 from ppsim_tpu_torch.engines.mesh import LocalMesh
 from ppsim_tpu_torch.initlib import init_particles
@@ -37,7 +40,8 @@ from ppsim_tpu_torch.ops.binning import BIG
 from ppsim_tpu_torch.ops.grid3d_ops import FILLS3, Geometry3S
 from ppsim_tpu_torch.ops.grid_ops import SLAB_FILLS, SlabGeometry, f32
 from ppsim_tpu_torch.testing import (
-    SHARD_EDGE_GEOMETRY, SHARD_EDGE_GEOMETRY3, shard_edge_slab, shard_edge_slab3,
+    SHARD_EDGE_GEOMETRY, SHARD_EDGE_GEOMETRY3, TILE_EDGE_GEOMETRY, shard_edge_slab,
+    shard_edge_slab3, tile_edge_slab,
 )
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -288,3 +292,139 @@ def test_sharded_grid3d_equals_cuda3d_on_card(cuda, law):
         _equal(f"P={P} pos", res.state.pos, ref.state.pos)
         _equal(f"P={P} vel", res.state.vel, ref.state.vel)
         assert [float(m) for m in res.monitors] == [float(m) for m in ref.monitors]
+
+
+# Tiles: (geometry, mesh shape, contention). TILE_EDGE_GEOMETRY's last row
+# and column of tiles are ragged; LARGE's 2 x 2 tiles of 104 x 192 hold many
+# of K1's and K2's strips and segments.
+# RAGGED's tiles are 80 columns wide: K2's third strip of 32 is ragged, so
+# its east ghost columns sit inside the strip.
+RAGGED = SlabGeometry(rows=29, cols=150, rows_pad=32, cols_pad=160, capacity=4,
+                      bin_size=0.05)
+TILE_CASES = {"edge-2x2": (TILE_EDGE_GEOMETRY, (2, 2), False),
+              "contention-1x4": (TILE_EDGE_GEOMETRY, (1, 4), True),
+              "large-2x2": (LARGE, (2, 2), False),
+              "ragged-2x2": (RAGGED, (2, 2), False)}
+
+
+def _tile_cut(shape, d, R, C):
+    r, c = divmod(d, shape[1])
+    rl, cl = R // shape[0], C // shape[1]
+    return (slice(None), slice(r * rl, (r + 1) * rl), slice(c * cl, (c + 1) * cl)), r * rl, c * cl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tile_rebin_kernel_bitwise_on_card(cuda, case):
+    """K2 with row0, col0, its ghost rows and its ghost columns (1 west, 2
+    east, over rows -1..R+1) on every tile, against its twin and the bins of
+    the single-device K2 on the whole slab."""
+    geom, shape, contention = TILE_CASES[case]
+    slab = tile_edge_slab(geom, shape, seed=2, contention=contention, device=cuda)
+    tiles = tiles_from_numpy(*(t.cpu().numpy() for t in slab), shape, device=cuda)
+    mesh = LocalMesh(shape, cuda)
+    whole, whole_cnt = rebin_axes_call_cuda(slab, geom, EVAC)
+    halos = [mesh.tile_halo([t[k] for t in tiles], SLAB_FILLS[k], 1,
+                            2 if k in (0, 4) else 1, 1, 2) for k in range(5)]
+    for d, t in enumerate(tiles):
+        cut, r0, c0 = _tile_cut(shape, d, *geom.shape[1:])
+        kw = dict(row0=r0, field_ghosts=[h[d][:2] for h in halos], col0=c0,
+                  col_ghosts=[h[d][2:] for h in halos])
+        got, cnt = rebin_axes_call_cuda(t, geom, EVAC, **kw)
+        want, wcnt = rebin_axes_call_plain(t, geom, EVAC, **kw)
+        for k, (g, w, f) in enumerate(zip(got, want, whole)):
+            _equal(f"K2 tile {d} plane {k} vs twin", g, w)
+            _equal(f"K2 tile {d} plane {k} vs single device", g, f[cut])
+        _equal(f"K2 tile {d} counts", cnt, wcnt)
+        _equal(f"K2 tile {d} counts vs single device", cnt, whole_cnt[cut])
+    assert int(whole_cnt[1].sum()) == int(whole_cnt[2].sum())  # nothing dropped
+    if contention:
+        assert int(whole_cnt[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
+def test_tile_step_kernel_on_card(cuda, shape):
+    """K1 with row0, col0, ghost rows and ghost columns on every tile of
+    DENSE's drifted slab: allclose to its twin, bitwise the single-device
+    K1's bins."""
+    eng = get_engine("sharded_tile", DENSE, device="cpu", mesh_shape=shape, col_block=8)
+    arrays = [a.copy() for a in tiles_to_numpy(
+        eng.init_carry(init_particles(DENSE, seed=42)).slab, shape)]
+    rng = np.random.default_rng(5)
+    live = arrays[4] >= 0
+    for k in (0, 1):
+        arrays[k][live] += rng.uniform(-0.3, 0.3, live.sum()).astype(np.float32) * eng.geom.bin_size
+    geom = eng.geom
+    tiles = tiles_from_numpy(*arrays, shape, device=cuda)
+    args = (geom, DENSE.cutoff, DENSE.min_r, DENSE.mass, DENSE.dt, DENSE.size)
+    whole = grid_step_cuda(*(torch.from_numpy(a).to(cuda) for a in arrays[:4]), *args)
+    mesh = LocalMesh(shape, cuda)
+    gx, gy = (mesh.tile_halo([t[k] for t in tiles], BIG, 1, 1, 1, 1) for k in (0, 1))
+    for d, t in enumerate(tiles):
+        cut, r0, c0 = _tile_cut(shape, d, *geom.shape[1:])
+        (tx, bx, wx, ex), (ty, by, wy, ey) = gx[d], gy[d]
+        kw = dict(row0=r0, ghosts=(tx, ty, bx, by), col0=c0, col_ghosts=(wx, wy, ex, ey))
+        got = grid_step_cuda(*t[:4], *args, **kw)
+        want = grid_step_plain(*t[:4], *args, **kw)
+        for k, (g, w, f) in enumerate(zip(got, want, whole)):
+            assert torch.allclose(g, w, rtol=RTOL, atol=ATOL), (d, k)
+            _equal(f"K1 tile {d} output {k} vs single device", g, f[cut] if f.dim() == 3
+                   else f[cut[1:]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["axes", "dirs9"])
+def test_sharded_tile_equals_cuda_engine_on_card(cuda, mode):
+    cfg = DENSE.with_(grid_rebin_mode=mode)
+    state = init_particles(cfg, seed=42, device=cuda)
+    ref = get_engine("cuda", cfg, device=cuda).run(state, nsteps=24)
+    for shape in ((2, 2), (1, 4), (4, 1)):
+        res = get_engine("sharded_tile", cfg, device=cuda, mesh_shape=shape,
+                         col_block=8).run(state, nsteps=24)
+        _equal(f"{shape} pos", res.state.pos, ref.state.pos)
+        _equal(f"{shape} vel", res.state.vel, ref.state.vel)
+        assert [float(m) for m in res.monitors] == [float(m) for m in ref.monitors]
+
+
+@pytest.mark.cuda
+def test_tile_entry_points_refuse_columns_without_rows(cuda):
+    """Ghost columns need the ghost rows: the wrappers raise, and K1's and
+    K2's C entry points return cudaErrorInvalidValue (1) and write nothing."""
+    geom, shape = TILE_EDGE_GEOMETRY, (1, 4)
+    slab = tile_edge_slab(geom, shape, seed=1, device=cuda)
+    t = tiles_from_numpy(*(a.cpu().numpy() for a in slab), shape, device=cuda)[1]
+    cap, R, C = t.xl.shape
+    col = torch.full((cap, R + 2, 1), BIG, device=cuda)
+    step_args = (geom, DENSE.cutoff, DENSE.min_r, DENSE.mass, DENSE.dt, DENSE.size)
+    with pytest.raises(ValueError, match="ghost rows"):
+        grid_step_cuda(*t[:4], *step_args, col0=C, col_ghosts=(col,) * 4)
+    with pytest.raises(ValueError, match="ghost rows"):
+        rebin_axes_call_cuda(t, geom, EVAC, col0=C, col_ghosts=[(col, col)] * 5)
+    from ppsim_tpu_torch.ops.cuda_grid import pair_args, step_plan
+    from ppsim_tpu_torch.ops.cuda_rebin import rebin_plan
+
+    lib = _build.kernels()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    out = [torch.full_like(a, 7) for a in t]
+    sp = torch.full((R, C), 7.0, device=cuda)
+    plan = step_plan((cap, R, C))
+    law, *consts = pair_args("repulsive", DENSE.cutoff, DENSE.min_r, DENSE.mass, ())
+    err = lib.ppsim_grid_step(
+        *(a.data_ptr() for a in t[:4]), *(0,) * 4, *(col.data_ptr(),) * 4,
+        *(a.data_ptr() for a in (*out[:4], sp)), cuda.index, cap, R, C, 0, C, law,
+        *plan.tile, plan.seg, plan.threads, plan.blocks, plan.smem, f32(geom.bin_size),
+        *consts, f32(DENSE.dt), f32(DENSE.size), stream)
+    torch.cuda.synchronize()
+    assert err == 1
+    cnt = torch.full((4, R, C), 7, dtype=torch.int32, device=cuda)
+    plan = rebin_plan((cap, R, C))
+    err = lib.ppsim_rebin_axes(
+        *(a.data_ptr() for a in t), *(0,) * 10, *(col.data_ptr(),) * 10,
+        *(a.data_ptr() for a in (*out, cnt)), cuda.index, cap, R, C, 0, C, geom.rows,
+        geom.cols, EVAC, *plan.tile, plan.seg, plan.threads, plan.blocks, plan.smem,
+        f32(geom.bin_size), f32(1.0 / geom.bin_size), stream)
+    torch.cuda.synchronize()
+    assert err == 1
+    for a in (*out, sp, cnt):
+        assert bool((a == 7).all())
