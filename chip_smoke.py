@@ -157,6 +157,18 @@ SHARDS = 4
 STEPS_DIRS9_SHARDED = 200
 # Phase 12: the tile meshes (the near-square one of 4, and columns only).
 TILE_MESHES = ((2, 2), (1, 4))
+# Phase 13: the particle-list engines. 13a: oracle == binned bitwise at
+# n = 16,384 (the JAX package's own contract, at 10x its test's n), and the
+# oracle against the native float64 one (the bounds of the JAX package's
+# tests/test_native.py: f64 1e-9, f32 1e-4); 13b-c: the main path's n for
+# 200 steps; 13d: the stretch config on binned3d for 10 steps (a step costs
+# ~0.6 s: 27 gathers of (n, 8) slots), so that phase 13 stays near 90 s.
+N_ORACLE, STEPS_ORACLE = 16_384, 100
+N_ORACLE64, STEPS_ORACLE64 = 1024, 10
+ORACLE64_ATOL, ORACLE32_ATOL = 1e-9, 1e-4
+STEPS_PARTICLE = 200
+PROFILE_PARTICLE = 3
+STEPS_BINNED3D = 10
 # Peak rates of one NVIDIA H100 SXM at 700 W (HBM3 bandwidth, dense FP32).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -284,17 +296,37 @@ def final_frame_check(label: str, pos, cfg) -> None:
 def run_cli(label: str, args) -> None:
     """``python -m ppsim_tpu_torch *args`` must exit 0 and print the summary
     line and a checker PASS."""
-    cmd = [sys.executable, "-m", "ppsim_tpu_torch", *args]
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    for line in (proc.stdout + proc.stderr).strip().splitlines():
-        log(f"  cli: {line}")
-    if proc.returncode != 0:
-        raise RuntimeError(f"{label} exited {proc.returncode}")
-    if "Simulation Time = " not in proc.stdout:
-        raise RuntimeError(f"{label} printed no summary line")
-    if "Correctness check: PASS" not in proc.stdout:
-        raise RuntimeError(f"{label} checker did not PASS")
+    run_clis([(label, args)])
+
+
+def run_clis(runs) -> None:
+    """:func:`run_cli` for each ``(label, args)`` of ``runs``, the processes
+    started together (they share the card: their summary times are not
+    measurements)."""
+    procs = [(label, subprocess.Popen([sys.executable, "-m", "ppsim_tpu_torch", *args],
+                                      cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+             for label, args in runs]
+    outs = []
+    try:
+        for label, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            outs.append((label, proc.returncode, out, err))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for label, _, out, err in outs:
+        for line in (out + err).strip().splitlines():
+            log(f"  cli ({label}): {line}")
+    for label, rc, out, _ in outs:
+        if rc != 0:
+            raise RuntimeError(f"{label} exited {rc}")
+        if "Simulation Time = " not in out:
+            raise RuntimeError(f"{label} printed no summary line")
+        if "Correctness check: PASS" not in out:
+            raise RuntimeError(f"{label} checker did not PASS")
 
 
 def k1_compare(name, slab, geom, cfg, law="repulsive", law_params=()) -> float:
@@ -1562,6 +1594,152 @@ def phase_tile(kernels, state, cfg, ref3, ref9, smi: str) -> None:
     phase_line("12c", "tile dirs9 route clean", t0)
 
 
+def phase_particle(state, ref3, state3, smi: str) -> None:
+    """Phase 13: the particle-list engines on the card (plain PyTorch: they
+    reach no TPU kernel, so no kernel of the port). ``state`` is the main
+    path's initial state, ``ref3`` phase 3's (final ParticleState,
+    seconds), ``state3`` the stretch config's initial state."""
+    import numpy as np
+    import torch
+
+    from ppsim_tpu_torch import native
+    from ppsim_tpu_torch.config import SimConfig
+    from ppsim_tpu_torch.engines import get_engine
+    from ppsim_tpu_torch.harness import timed_run
+    from ppsim_tpu_torch.initlib import init_particles
+    from ppsim_tpu_torch.profiling import profile_steps
+    from ppsim_tpu_torch.state import make_state
+
+    dev = torch.device("cuda", 0)
+    t13 = time.perf_counter()
+
+    # ---- (a) oracle against binned, bitwise; f64 oracle against native ----
+    t0 = time.perf_counter()
+    cfg_a = SimConfig(num_parts=N_ORACLE)
+    st_a = init_particles(cfg_a, seed=SEED, method="reference", device=dev)
+    runs = [get_engine(name, cfg_a, device=dev).run(st_a, nsteps=STEPS_ORACLE,
+                                                     savefreq=10)
+            for name in ("oracle", "binned")]
+    differ = runs[0].frames != runs[1].frames
+    if differ.any():
+        raise AssertionError(
+            f"oracle vs binned at n={N_ORACLE}: {int(differ.any(axis=2).sum())} "
+            f"particle positions of {differ.shape[0]} frames differ (bitwise parity)")
+    get_engine("binned", cfg_a, device=dev).check(runs[1])
+    log(f"  oracle == binned bitwise, n={N_ORACLE}, {STEPS_ORACLE} steps, "
+        f"{runs[0].frames.shape[0]} frames; binned max_bin_count "
+        f"{int(runs[1].monitors.max_bin_count)}")
+    cfg64 = SimConfig(num_parts=N_ORACLE64, dtype="float64")
+    pos, vel = native.native_init(N_ORACLE64, cfg64.size, SEED)
+    npos, _ = native.native_run_oracle(pos, vel, cfg64, STEPS_ORACLE64)
+    errs = {}
+    for dt in ("float64", "float32"):
+        c = cfg64.with_(dtype=dt)
+        r = get_engine("oracle", c, device=dev).run(
+            make_state(pos, vel, dtype=c.torch_dtype, device=dev), nsteps=STEPS_ORACLE64)
+        if r.state.pos.dtype != c.torch_dtype:
+            raise AssertionError(f"oracle {dt} ran in {r.state.pos.dtype}")
+        errs[dt] = float(np.abs(r.state.pos.double().cpu().numpy() - npos).max())
+    if errs["float64"] > ORACLE64_ATOL or errs["float32"] > ORACLE32_ATOL:
+        raise AssertionError(f"oracle vs native ppsim_run_oracle: {errs}")
+    log(f"  oracle vs native ppsim_run_oracle (float64, g++), n={N_ORACLE64}, "
+        f"{STEPS_ORACLE64} steps: max |dpos| float64 {errs['float64']:.3e} (bound "
+        f"{ORACLE64_ATOL:g}), float32 {errs['float32']:.3e} (bound {ORACLE32_ATOL:g})")
+    del runs
+    phase_line("13a", "oracle == binned bitwise; f64 oracle tracks the native oracle", t0)
+
+    # ---- (b) binned at the main path's n ---------------------------------
+    t0 = time.perf_counter()
+    cfg_b = SimConfig(num_parts=N_MAIN)
+    engine = get_engine("binned", cfg_b, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    result, seconds = timed_run(engine, state, STEPS_PARTICLE, 0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    engine.check(result)
+    pid = result.carry.pid.long()
+    if int(torch.bincount(pid, minlength=N_MAIN).max()) != 1 or pid.numel() != N_MAIN:
+        raise AssertionError("binned: pid is not a permutation of 0..n-1")
+    final_frame_check("the binned run", result.state.pos, cfg_b)
+    ref_seconds = ref3[1]
+    rate, rate3 = N_MAIN * STEPS_PARTICLE / seconds, N_MAIN * STEPS_MAIN / ref_seconds
+    g, m = engine.geom, result.monitors
+    log(f"  binned n={N_MAIN} steps={STEPS_PARTICLE} ({g.nrows} x {g.ncols} bins of "
+        f"{g.bin_size:g}, capacity {g.capacity}): {seconds:.4f} s = {rate / 1e6:.2f} M "
+        f"particle-steps/s ({1e3 * seconds / STEPS_PARTICLE:.3f} ms a step); cuda "
+        f"(phase 3, same process): {rate3 / 1e6:.2f} M particle-steps/s "
+        f"({1e3 * ref_seconds / STEPS_MAIN:.3f} ms a step); cuda / binned = "
+        f"{rate3 / rate:.2f} ({smi})")
+    log(f"  monitors: max_bin_count {int(m.max_bin_count)} (capacity {g.capacity}) "
+        f"dropped {int(m.migrate_dropped)} deferred {int(m.deferred)}; pid a "
+        f"permutation of 0..{N_MAIN - 1}; peak device memory {peak} bytes ({smi})")
+    ref_b = result.state
+    carry = result.carry
+    del result
+    _, win = profile_steps(engine, carry, STEPS_PARTICLE + 1, PROFILE_PARTICLE)
+    log(f"  torch.profiler, binned, steps {win.steps.start}-{win.steps.stop - 1} ({smi}):")
+    for line in win.table(top=10).splitlines():
+        log(f"    {line}")
+    del carry, engine
+    torch.cuda.empty_cache()
+    phase_line("13b", "binned at the main path's n clean", t0)
+
+    # ---- (c) sharded on 4 in-process strips, bitwise = 13b ----------------
+    t0 = time.perf_counter()
+    engine = get_engine("sharded", cfg_b, device=dev, shards=SHARDS)
+    result, seconds_c = timed_run(engine, state, STEPS_PARTICLE, 0)
+    m = result.monitors
+    if int(m.migrate_dropped) != 0:
+        raise AssertionError(f"sharded dropped {int(m.migrate_dropped)} particles")
+    differ = ((result.state.pos != ref_b.pos) | (result.state.vel != ref_b.vel)).any(dim=1)
+    if bool(differ.any()):
+        rows = (ref_b.pos[differ, 0] / cfg_b.bin_size).long().tolist()[:8]
+        raise AssertionError(
+            f"sharded vs binned: {int(differ.sum())} of {N_MAIN} particles differ in "
+            f"position or velocity (bitwise parity); bin rows {rows}, strips of "
+            f"{engine.rows_per_shard} rows")
+    engine.check(result)
+    log(f"  sharded ({SHARDS} strips of {engine.rows_per_shard} rows, slot pools of "
+        f"{engine.n_cap}, LocalMesh) n={N_MAIN} steps={STEPS_PARTICLE}: "
+        f"{seconds_c:.4f} s = {N_MAIN * STEPS_PARTICLE / seconds_c / 1e6:.2f} M "
+        f"particle-steps/s; binned (13b): {seconds:.4f} s; sharded / binned = "
+        f"{seconds_c / seconds:.4f} ({smi})")
+    log(f"  final state bitwise equal to 13b's (positions and velocities); monitors: "
+        f"max_bin_count {int(m.max_bin_count)} dropped {int(m.migrate_dropped)} "
+        f"deferred {int(m.deferred)}")
+    del result, engine, ref_b
+    torch.cuda.empty_cache()
+    phase_line("13c", "sharded == binned bitwise, nothing dropped", t0)
+
+    # ---- (d) binned3d on the stretch config ------------------------------
+    t0 = time.perf_counter()
+    cfg_d = SimConfig(**STRETCH)
+    engine = get_engine("binned3d", cfg_d, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    result, seconds = timed_run(engine, state3, STEPS_BINNED3D, 0)
+    engine.check(result)
+    pid = result.carry.pid.long()
+    if int(torch.bincount(pid, minlength=cfg_d.num_parts).max()) != 1:
+        raise AssertionError("binned3d: pid is not a permutation of 0..n-1")
+    final_frame_check("the binned3d stretch run", result.state.pos, cfg_d)
+    g, m = engine.geom, result.monitors
+    log(f"  binned3d, the stretch config (3D LJ, n={cfg_d.num_parts}, {g.nx}^3 bins of "
+        f"{g.bin_size:g}, capacity {g.capacity}), {STEPS_BINNED3D} steps: {seconds:.4f} s "
+        f"= {cfg_d.num_parts * STEPS_BINNED3D / seconds / 1e6:.2f} M particle-steps/s; "
+        f"max_bin_count {int(m.max_bin_count)} dropped {int(m.migrate_dropped)}; peak "
+        f"device memory {torch.cuda.max_memory_allocated(dev)} bytes ({smi})")
+    del result, engine
+    torch.cuda.empty_cache()
+    phase_line("13d", "binned3d stretch config clean", t0)
+
+    # ---- (e) the CLI ------------------------------------------------------
+    t0 = time.perf_counter()
+    args = ["-n", "262144", "-s", str(SEED), "--steps", "200", "--engine", "binned",
+            "--check"]
+    run_clis([("binned CLI", args), ("binned CLI float64", args + ["--dtype", "float64"])])
+    phase_line("13e", "binned CLI --check PASS, float32 and float64", t0)
+    phase_line("13", "particle-list engines clean", t13)
+
+
 def main() -> int:
     import torch
 
@@ -1809,6 +1987,8 @@ def main() -> int:
     phase_sharded3d(kernels, state3, ref6, smi)
     torch.cuda.empty_cache()
     phase_tile(kernels, state, cfg, ref3, ref9, smi)
+    torch.cuda.empty_cache()
+    phase_particle(state, ref3, state3, smi)
 
     out = [{k: v for k, v in rec.items() if k != "wrapper"}
            for rec in kernels.values()]

@@ -19,7 +19,8 @@ from ppsim_tpu_torch.state import ParticleState, make_state
 
 __all__ = ["config_from_dict", "particle_state_from_numpy", "slab_state_from_numpy",
            "slab3_state_from_numpy", "shards_from_numpy", "shards3_from_numpy",
-           "shards_to_numpy", "tiles_from_numpy", "tiles_to_numpy"]
+           "shards_to_numpy", "tiles_from_numpy", "tiles_to_numpy",
+           "shard_carry_from_numpy", "shard_carry_to_numpy"]
 
 
 def config_from_dict(fields: dict) -> SimConfig:
@@ -102,3 +103,34 @@ def tiles_to_numpy(tiles, mesh_shape):
                                                 axis=2)
                                  for r in range(0, len(tiles), pc)], axis=1)
                  for k in range(len(tiles[0])))
+
+
+def shard_carry_from_numpy(pos, vel, pid, shards: int, monitors=None, device="cpu"):
+    """A JAX ``ShardCarry`` (the global view as numpy: (P * N_cap, 2) ``pos``
+    and ``vel``, (P * N_cap,) ``pid`` with -1 for empty slots) cut into the
+    port's per-shard ``ShardCarry`` of ``shards`` strips, on ``device``, each
+    slot of origin ``HERE`` (the JAX carry keeps no origin: a carry fresh
+    from ``init_carry`` has none to keep). ``monitors``: the four monitor
+    values (default zeros)."""
+    from ppsim_tpu_torch.engines.base import Monitors
+    from ppsim_tpu_torch.engines.sharded import HERE, ShardCarry
+
+    if np.shape(pid)[0] % shards:
+        raise ValueError(f"{np.shape(pid)[0]} slots do not split into {shards} shards")
+    f = lambda a, dt: [torch.tensor(np.array(b, dt), device=device)  # noqa: E731
+                       for b in np.split(np.asarray(a), shards)]
+    dt = np.asarray(pos).dtype
+    mon = Monitors.zeros(device) if monitors is None else Monitors(
+        *(torch.tensor(np.asarray(v, t), device=device)
+          for v, t in zip(monitors, (np.int32, np.int32, np.float32, np.int32))))
+    pids = f(pid, np.int32)
+    origin = [torch.full(p.shape, HERE, dtype=torch.int64, device=device) for p in pids]
+    return ShardCarry(f(pos, dt), f(vel, dt), pids, origin, mon)
+
+
+def shard_carry_to_numpy(carry):
+    """The port's per-shard ``ShardCarry`` back to the numpy global view of
+    a JAX ``ShardCarry``: (pos, vel, pid) concatenated over the shards (the
+    origin tags have no JAX counterpart)."""
+    return tuple(np.concatenate([t.cpu().numpy() for t in ts])
+                 for ts in (carry.pos, carry.vel, carry.pid))

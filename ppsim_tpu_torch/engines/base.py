@@ -18,8 +18,8 @@ import torch
 from ppsim_tpu_torch.config import SimConfig
 from ppsim_tpu_torch.state import ParticleState
 
-__all__ = ["Monitors", "RunResult", "Engine", "register_engine", "get_engine",
-           "engine_names", "resolve_device"]
+__all__ = ["Monitors", "Carry", "RunResult", "Engine", "register_engine",
+           "get_engine", "engine_names", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -72,6 +72,17 @@ class Monitors(NamedTuple):
         return Monitors(*(np.asarray(t.cpu().numpy()) for t in self))
 
 
+class Carry(NamedTuple):
+    """The particle-list engines' carry: state in the engine's order (the
+    binned engines keep it bin-sorted across steps) and each row's original
+    index ``pid`` (int32), for id-order saves."""
+
+    pos: torch.Tensor
+    vel: torch.Tensor
+    pid: torch.Tensor
+    monitors: Monitors
+
+
 class RunResult(NamedTuple):
     state: ParticleState  # final state, id order (device tensors)
     frames: Optional[np.ndarray]  # (F, N, ndim) saved positions, id order
@@ -109,6 +120,9 @@ class Engine:
 
     name: str = "base"
     supported_ndim = (2,)
+    #: steps in one rebin period (the harness warms up one period); the
+    #: particle-list engines rebin every step, the slab engines override it
+    rebin_every = 1
 
     def __init__(self, config: SimConfig, device="cuda"):
         config.validate()
@@ -133,20 +147,31 @@ class Engine:
         run override this to do so and return True (the caller re-runs)."""
         return False
 
-    # ---- backend interface -------------------------------------------------
+    # ---- backend interface (defaults: the particle-list Carry) --------------
     def init_carry(self, state: ParticleState):
+        n = state.num_parts
+        return Carry(state.pos, state.vel,
+                     torch.arange(n, dtype=torch.int32, device=state.device),
+                     Monitors.zeros(state.device))
+
+    def step_carry(self, carry):
+        """One step of a particle-list engine."""
         raise NotImplementedError
 
     def step(self, carry, i: int):
         """Global step ``i`` (1-based) applied to ``carry``."""
-        raise NotImplementedError
+        return self.step_carry(carry)
 
     def frame_of(self, carry) -> torch.Tensor:
         """(N, ndim) positions in original id order."""
-        raise NotImplementedError
+        out = torch.empty_like(carry.pos)
+        out[carry.pid] = carry.pos
+        return out
 
     def final_state(self, carry) -> ParticleState:
-        raise NotImplementedError
+        vel = torch.empty_like(carry.vel)
+        vel[carry.pid] = carry.vel
+        return ParticleState(self.frame_of(carry), vel)
 
     def monitors_of(self, carry) -> Monitors:
         return carry.monitors

@@ -2,8 +2,9 @@
 
 Keeps the reference's flags ``-n -o -s`` (part1/main.cpp:62-117), its summary
 line ``Simulation Time = X seconds for N particles.`` (part1/main.cpp:147)
-and its timing contract: the timer wraps engine setup (the slab pack, the
-``init_simulation`` analog) and all steps, not particle initialization
+and its timing contract: the timer wraps engine setup (``init_carry``: the
+slab pack, or the sharded engine's strip split, the ``init_simulation``
+analog) and all steps, not particle initialization
 (part1/main.cpp:118-143). Kernel builds, a warm-up run and the host-to-device
 copy of the initial state happen before the timer starts; the timer stops
 after ``torch.cuda.synchronize()``.
@@ -16,10 +17,13 @@ after ``torch.cuda.synchronize()``.
     python -m ppsim_tpu_torch -n 20971520 --ndim 3 --density 7e-6 \
         --force-law lj --dt 1e-4 -s 42 --engine sharded_grid3d --shards 4
     python -m ppsim_tpu_torch -n 20971520 -s 42 --engine sharded_tile --shards 4
+    python -m ppsim_tpu_torch -n 262144 -s 42 --steps 200 --engine binned --check
+    python -m ppsim_tpu_torch -n 1024 -s 42 --engine oracle --dtype float64
+    python -m ppsim_tpu_torch -n 262144 -s 42 --engine sharded --shards 4
     torchrun --nproc-per-node 2 -m ppsim_tpu_torch -n 262144 --engine sharded_grid
 
-Under ``torchrun`` (``WORLD_SIZE`` set) ``sharded_grid``, ``sharded_grid3d``
-and ``sharded_tile`` (on the near-square mesh of the world size) run one
+Under ``torchrun`` (``WORLD_SIZE`` set) ``sharded``, ``sharded_grid``,
+``sharded_grid3d`` and ``sharded_tile`` (on the near-square mesh of the world size) run one
 shard a process over ``torch.distributed`` (NCCL on the cards, gloo with ``--device
 cpu``); every process runs the same program and rank 0 alone prints and
 writes.
@@ -62,6 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the engine runs (default cuda; cuda without a "
                         "GPU is an error, never a silent CPU run)")
+    p.add_argument("--dtype", default="float32", choices=("float32", "float64"),
+                   help="float type of the state (float64: the particle-list "
+                        "engines oracle, binned, binned3d, sharded; the slab "
+                        "engines are float32-only)")
     p.add_argument("--steps", type=int, default=None, help="override nsteps (default 1000)")
     p.add_argument("--savefreq", type=int, default=None, help="override savefreq (default 10)")
     p.add_argument("--check", action="store_true",
@@ -77,6 +85,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dt", type=float, default=None,
                    help="override the timestep (default 0.0005; LJ runs want "
                         "~1e-4)")
+    p.add_argument("--bin-scale", type=float, default=2.0,
+                   help="particle-list engines: bin side / cutoff")
+    p.add_argument("--bin-capacity", type=int, default=8,
+                   help="particle-list engines: max particles per bin")
     p.add_argument("--rebin-every", type=int, default=None,
                    help="rebin cadence in steps (default from config; routes "
                         "to the active --ndim family)")
@@ -113,7 +125,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "3D) or auto (reference in 2D, fast in 3D; a random "
                         "seed for -s 0)")
     p.add_argument("--shards", type=int, default=None, metavar="N",
-                   help="sharded_grid / sharded_grid3d: N row (y) strips, "
+                   help="sharded / sharded_grid / sharded_grid3d: N row (y) strips, "
                         "sharded_tile: N tiles on the near-square mesh, "
                         "held in this process "
                         "(the JAX CLI's --cpu-mesh N; default 1, or one "
@@ -198,8 +210,9 @@ def config_from_args(args) -> SimConfig:
         kw["grid_rebin_mode"] = args.grid_rebin_mode
     if args.grid3_spill is not None:
         kw["grid3_spill"] = bool(args.grid3_spill)
-    return SimConfig(num_parts=args.n, ndim=args.ndim,
-                     force_law=args.force_law, **kw)
+    return SimConfig(num_parts=args.n, ndim=args.ndim, force_law=args.force_law,
+                     dtype=args.dtype, bin_scale=args.bin_scale,
+                     bin_capacity=args.bin_capacity, **kw)
 
 
 def main(argv=None) -> int:
@@ -217,9 +230,9 @@ def main(argv=None) -> int:
     engine_name = args.engine or ("cuda3d" if args.ndim == 3 else "cuda")
     options = {}
     if args.shards is not None:
-        if engine_name not in ("sharded_grid", "sharded_grid3d", "sharded_tile"):
-            parser.error("--shards applies to --engine sharded_grid, sharded_grid3d "
-                         "or sharded_tile")
+        if engine_name not in ("sharded", "sharded_grid", "sharded_grid3d", "sharded_tile"):
+            parser.error("--shards applies to --engine sharded, sharded_grid, "
+                         "sharded_grid3d or sharded_tile")
         options["shards"] = args.shards
     try:
         engine = get_engine(engine_name, config, device=args.device, **options)
@@ -262,12 +275,13 @@ def main(argv=None) -> int:
             "num_parts": args.n,
             "ndim": args.ndim,
             "force_law": args.force_law,
+            "dtype": args.dtype,
             "nsteps": nsteps,
             "seed": args.s,
             "savefreq": effective_savefreq,
             "seconds": seconds,
             "particle_steps_per_sec": args.n * nsteps / seconds,
-            "timing_contract": "includes slab pack + steps + final gather; "
+            "timing_contract": "includes init_carry (slab pack) + steps + final gather; "
                                "excludes kernel build, warm-up, particle init "
                                "and the host-to-device copy",
             "max_bin_count": int(result.monitors.max_bin_count),

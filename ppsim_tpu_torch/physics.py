@@ -26,6 +26,8 @@ __all__ = [
     "accel_from_deltas",
     "lj_accel_from_deltas",
     "accel_fn_for",
+    "accel_vec_fn_for",
+    "pair_accel",
     "reflect_walls",
     "verlet_step",
 ]
@@ -99,6 +101,40 @@ def accel_fn_for(config):
             config.lj_epsilon, config.lj_sigma,
         )
     raise ValueError(f"unknown force_law {config.force_law!r}")
+
+
+def accel_vec_fn_for(config):
+    """Dimension-agnostic pair-acceleration closure ``d -> a``: ``d`` the
+    (..., ndim) displacement ``pos_neighbour - pos_self``, ``a`` the (...,
+    ndim) acceleration contribution (the 3D engines' force-law seam). The
+    squared distance is summed in axis order, x then y (then z), as the JAX
+    package's reduction over the last axis adds them."""
+    if config.force_law == "repulsive":
+        coef_of = lambda r2: coef_from_r2(r2, config.cutoff, config.min_r,  # noqa: E731
+                                          config.mass)
+    elif config.force_law == "lj":
+        coef_of = lambda r2: lj_coef_from_r2(  # noqa: E731
+            r2, config.cutoff, config.min_r, config.mass,
+            config.lj_epsilon, config.lj_sigma,
+        )
+    else:
+        raise ValueError(f"unknown force_law {config.force_law!r}")
+
+    def accel_vec(d):
+        r2 = d[..., 0] * d[..., 0]
+        for k in range(1, d.shape[-1]):
+            r2 = r2 + d[..., k] * d[..., k]
+        return coef_of(r2)[..., None] * d
+
+    return accel_vec
+
+
+def pair_accel(pos_i, pos_j, cutoff: float, min_r: float, mass: float):
+    """Repulsive acceleration on particle(s) at ``pos_i`` from neighbour(s)
+    at ``pos_j``: (..., 2) tensors broadcastable against each other."""
+    d = pos_j - pos_i
+    ax, ay = accel_from_deltas(d[..., 0], d[..., 1], cutoff, min_r, mass)
+    return torch.stack([ax, ay], dim=-1)
 
 
 def reflect_walls(pos, vel, size: float):

@@ -1,6 +1,7 @@
-"""``sharded_grid``, ``sharded_grid3d`` and ``sharded_tile`` over
-``torch.distributed``: ``DistMesh`` under gloo with two CPU processes equals
-``LocalMesh(2)`` in one process, bitwise, in both 2D rebin modes and in 3D,
+"""``sharded_grid``, ``sharded_grid3d``, ``sharded_tile`` and the
+particle-list ``sharded`` over ``torch.distributed``: ``DistMesh`` under
+gloo with two CPU processes equals ``LocalMesh(2)`` in one process, bitwise,
+in both 2D rebin modes, in 3D and on the particle list,
 and with four processes on a 2 x 2 mesh equals ``LocalMesh((2, 2))``, on a
 saved run. The processes meet through a ``FileStore``
 in the test's own directory (no TCP port, so parallel test workers cannot
@@ -27,15 +28,19 @@ CFG3 = SimConfig(num_parts=400, ndim=3, density=7e-6, grid3_capacity=8,
 STEPS, SAVEFREQ = 13, 4
 # The mesh of each mode: 2 strips, or 2 x 2 tiles (col_block 8 splits the
 # 41 x 41 bins of CFG into tiles of 24 x 24).
-SHAPES = {"axes": (2, 1), "dirs9": (2, 1), "3d": (2, 1), "tile": (2, 2)}
+SHAPES = {"axes": (2, 1), "dirs9": (2, 1), "3d": (2, 1), "tile": (2, 2),
+          "particle": (2, 1)}
 
 
 def _run(mode, mesh=None, shards=None):
     """The run of ``mode``: a 2D rebin mode on sharded_grid, "3d" on
-    sharded_grid3d, or "tile" on sharded_tile (axes)."""
+    sharded_grid3d, "tile" on sharded_tile (axes), or "particle" on the
+    particle-list sharded."""
     torch.set_num_threads(1)
     kw = dict(device="cpu", mesh=mesh, shards=shards)
-    if mode == "tile":
+    if mode == "particle":
+        name, cfg = "sharded", CFG
+    elif mode == "tile":
         name, cfg = "sharded_tile", CFG
         kw.update(mesh_shape=None if shards is None else SHAPES[mode], col_block=8)
     else:
@@ -67,7 +72,7 @@ def _worker(rank, store_path, mode, out_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("mode", ["axes", "dirs9", "3d", "tile"])
+@pytest.mark.parametrize("mode", ["axes", "dirs9", "3d", "tile", "particle"])
 def test_dist_mesh_gloo_equals_local_mesh(tmp_path, mode):
     ctx = multiprocessing.get_context("spawn")
     out = str(tmp_path / "run")
