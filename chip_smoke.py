@@ -99,7 +99,21 @@ Phases, each printing its result and seconds on its own line:
    to phase 3's, its seconds beside phase 3's, and a profiler window of two
    rebin periods; (c) dirs9 on the tile route (the torch ops on each tile's
    ghost ring, as the JAX engine runs it) for 200 steps, against phase
-   10c's single-device ``cuda`` dirs9 run, with its slowest device ops.
+   10c's single-device ``cuda`` dirs9 run, with its slowest device ops;
+13. the particle-list engines (plain PyTorch: in the JAX package they reach
+   no Pallas kernel, so they launch no kernel of the port): (a) ``oracle``
+   against ``binned`` at n = 16,384, 100 steps, frames bitwise equal (the
+   JAX package's contract), and the float64 ``oracle`` (float32 beside it)
+   on 1,024 particles for 10 steps against the native float64
+   ``ppsim_run_oracle``; (b) ``binned`` at n = 20,971,520 for 200 steps
+   through ``harness.timed_run``: seconds and particle-steps/s beside phase
+   3's, monitors, the pid permutation, peak device memory, a checker PASS
+   on the final frame and a profiler window of 3 steps; (c) ``sharded`` on
+   4 in-process strips from the same state, final state bitwise equal to
+   (b)'s, nothing dropped; (d) ``binned3d`` on the stretch config for 10
+   steps: monitors, pid permutation, checker PASS; (e) the CLI
+   ``--engine binned -n 262144 --steps 200 --check`` in float32 and with
+   ``--dtype float64``, the two processes started together.
 
 The line before the last is a JSON object with each kernel's launches in its
 full-width run (phase 3 for K1 and K2, phase 6 for K3-K5, phase 9 for K6-K8,

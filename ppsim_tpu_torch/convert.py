@@ -105,13 +105,12 @@ def tiles_to_numpy(tiles, mesh_shape):
                  for k in range(len(tiles[0])))
 
 
-def shard_carry_from_numpy(pos, vel, pid, shards: int, monitors=None, device="cpu"):
+def shard_carry_from_numpy(pos, vel, pid, shards: int, device="cpu"):
     """A JAX ``ShardCarry`` (the global view as numpy: (P * N_cap, 2) ``pos``
     and ``vel``, (P * N_cap,) ``pid`` with -1 for empty slots) cut into the
-    port's per-shard ``ShardCarry`` of ``shards`` strips, on ``device``, each
-    slot of origin ``HERE`` (the JAX carry keeps no origin: a carry fresh
-    from ``init_carry`` has none to keep). ``monitors``: the four monitor
-    values (default zeros)."""
+    port's per-shard ``ShardCarry`` of ``shards`` strips, on ``device``, with
+    zero monitors and each slot of origin ``HERE`` (the JAX carry keeps no
+    origin: a carry fresh from ``init_carry`` has none to keep)."""
     from ppsim_tpu_torch.engines.base import Monitors
     from ppsim_tpu_torch.engines.sharded import HERE, ShardCarry
 
@@ -120,12 +119,9 @@ def shard_carry_from_numpy(pos, vel, pid, shards: int, monitors=None, device="cp
     f = lambda a, dt: [torch.tensor(np.array(b, dt), device=device)  # noqa: E731
                        for b in np.split(np.asarray(a), shards)]
     dt = np.asarray(pos).dtype
-    mon = Monitors.zeros(device) if monitors is None else Monitors(
-        *(torch.tensor(np.asarray(v, t), device=device)
-          for v, t in zip(monitors, (np.int32, np.int32, np.float32, np.int32))))
     pids = f(pid, np.int32)
-    origin = [torch.full(p.shape, HERE, dtype=torch.int64, device=device) for p in pids]
-    return ShardCarry(f(pos, dt), f(vel, dt), pids, origin, mon)
+    origin = [torch.full(p.shape, HERE, dtype=torch.int8, device=device) for p in pids]
+    return ShardCarry(f(pos, dt), f(vel, dt), pids, origin, Monitors.zeros(device))
 
 
 def shard_carry_to_numpy(carry):

@@ -60,7 +60,7 @@ FROM_ABOVE, HERE, FROM_BELOW = 0, 1, 2
 
 class ShardCarry(NamedTuple):
     """One (n_cap, 2) ``pos`` / ``vel``, (n_cap,) int32 ``pid`` and (n_cap,)
-    int64 ``origin`` tensor a local shard (``mesh.shards`` order; pid -1 =
+    int8 ``origin`` tensor a local shard (``mesh.shards`` order; pid -1 =
     empty slot) and the monitors, the same in every process."""
 
     pos: List[torch.Tensor]
@@ -144,7 +144,7 @@ class ShardedEngine(Engine):
             v = torch.zeros((self.n_cap, 2), dtype=vel.dtype, device=dev)
             i = torch.full((self.n_cap,), -1, dtype=torch.int32, device=dev)
             p[:k], v[:k], i[:k] = pos[idx], vel[idx], idx.to(torch.int32)
-            o = torch.full((self.n_cap,), HERE, dtype=torch.int64, device=dev)
+            o = torch.full((self.n_cap,), HERE, dtype=torch.int8, device=dev)
             for lst, t in zip(out, (p, v, i, o)):
                 lst.append(t)
         return ShardCarry(*out, Monitors.zeros(dev))
@@ -239,8 +239,8 @@ class ShardedEngine(Engine):
         pid_a, pid_b = mesh.exchange([b[1] for b in dns], [b[1] for b in ups], -1, 0)
 
         m = self.m_cap
-        inc_origin = torch.cat([torch.full((m,), FROM_BELOW, dtype=torch.int64),
-                                torch.full((m,), FROM_ABOVE, dtype=torch.int64)]).to(self.device)
+        inc_origin = torch.cat([torch.full((m,), FROM_BELOW, dtype=torch.int8, device=self.device),
+                                torch.full((m,), FROM_ABOVE, dtype=torch.int8, device=self.device)])
         pos_out, vel_out, pid_out, origin_out, drops = [], [], [], [], []
         for (pos, vel, pid), ba, bb, ia, ib, up, dn in zip(
                 moved, in_a, in_b, pid_a, pid_b, ups, dns):
@@ -260,7 +260,7 @@ class ShardedEngine(Engine):
             pos_out.append(_set_rows(pos, tgt, inc[:, :2]))
             vel_out.append(_set_rows(vel, tgt, inc[:, 2:]))
             pid_out.append(_set_rows(pid, tgt, inc_pid))
-            here = torch.full(pid.shape, HERE, dtype=torch.int64, device=pid.device)
+            here = torch.full(pid.shape, HERE, dtype=torch.int8, device=pid.device)
             origin_out.append(_set_rows(here, tgt, inc_origin[vorder]))
             drops.append(up[2] + dn[2] + torch.clamp(n_in - n_empty, min=0))
 

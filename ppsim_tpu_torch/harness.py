@@ -23,10 +23,10 @@ after ``torch.cuda.synchronize()``.
     torchrun --nproc-per-node 2 -m ppsim_tpu_torch -n 262144 --engine sharded_grid
 
 Under ``torchrun`` (``WORLD_SIZE`` set) ``sharded``, ``sharded_grid``,
-``sharded_grid3d`` and ``sharded_tile`` (on the near-square mesh of the world size) run one
-shard a process over ``torch.distributed`` (NCCL on the cards, gloo with ``--device
-cpu``); every process runs the same program and rank 0 alone prints and
-writes.
+``sharded_grid3d`` and ``sharded_tile`` (on the near-square mesh of the
+world size) run one shard a process over ``torch.distributed`` (NCCL on the
+cards, gloo with ``--device cpu``); every process runs the same program and
+rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -125,7 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "3D) or auto (reference in 2D, fast in 3D; a random "
                         "seed for -s 0)")
     p.add_argument("--shards", type=int, default=None, metavar="N",
-                   help="sharded / sharded_grid / sharded_grid3d: N row (y) strips, "
+                   help="sharded / sharded_grid / sharded_grid3d: N row (y) "
+                        "strips, "
                         "sharded_tile: N tiles on the near-square mesh, "
                         "held in this process "
                         "(the JAX CLI's --cpu-mesh N; default 1, or one "

@@ -58,6 +58,15 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs files in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(jfields, seed=42):
     jcfg = JConfig(**({"num_parts": N} | jfields))
     method = "fast" if jcfg.ndim == 3 else "reference"

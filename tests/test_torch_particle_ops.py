@@ -33,6 +33,15 @@ ACC_RTOL, ACC_ATOL_OF_MAX = 1e-5, 1e-6
 N = 1500
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs files in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_config(**kw):
     return JConfig(num_parts=N, **kw)
 
