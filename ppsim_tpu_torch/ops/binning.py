@@ -6,7 +6,7 @@ dense ``(num_bins + 1, capacity)`` grid of positions every step:
 
 1. ``bin_id = row * ncols + col`` per particle (row along x);
 2. a stable sort by ``bin_id``, so particles land contiguous by bin;
-3. rank within bin by a segmented iota (:func:`segment_ranks`);
+3. rank within bin: index less the bin's first index (:func:`segment_ranks`);
 4. a scatter of positions into the grid.
 
 Bin ``num_bins`` is the *void bin*: every slot keeps the ``BIG`` sentinel,
