@@ -113,12 +113,29 @@ Phases, each printing its result and seconds on its own line:
    (b)'s, nothing dropped; (d) ``binned3d`` on the stretch config for 10
    steps: monitors, pid permutation, checker PASS; (e) the CLI
    ``--engine binned -n 262144 --steps 200 --check`` in float32 and with
-   ``--dtype float64``, the two processes started together.
+   ``--dtype float64``, the two processes started together; (f)
+   ``binned3d`` against the 3D ``oracle`` at n = 800 for 100 steps with
+   both laws, frames within 1e-6 and pairs in range; (g) ``sharded`` on 4
+   strips bitwise equal to ``binned`` under LJ, n = 262,144, 300 steps;
+14. the 3D repulsive config at full width (n = 20,971,520, ``--ndim 3
+   --density 7e-6``, dt 5e-4, fast init, 1000 steps, unsaved, ``cuda3d``,
+   through ``harness.timed_run``; 205 x 208 x 128 bins, cadence 2) in three
+   arms from one initial state: (a) no init spill and no repack, the whole
+   run at the packing capacity; (b) no init spill with the capacity-phase
+   repack (a prologue at the packing capacity, then attempts to repack down
+   to the run capacity 11); (c) the defaults (the init spill keeps capacity
+   11). Each arm: seconds, particle-steps/s, packing and final capacity,
+   repack attempts and switch, monitors, pid census, peak device memory,
+   launches, a checker PASS on the final frame and K3's time on its final
+   slab. (b)'s final state bitwise equal to (a)'s if it never committed
+   (else its largest difference); K3, K4 and K5 against their plain twins
+   on (b)'s final slab and their times there.
 
 The line before the last is a JSON object with each kernel's launches in its
 full-width run (phase 3 for K1 and K2, phase 6 for K3-K5, phase 9 for K6-K8,
 phase 10 for the 2D shard forms, phase 11 for the 3D ones, phase 12b for the
-tile forms),
+tile forms, phase 14's arm (b) for the ``*_repulsive`` records, which add
+``ms_by_capacity``, K3 on the final slabs of arms (a) and (c)),
 its largest
 difference from the plain twin, its time beside the plain twin's and its
 bound (the larger of its bytes over 3.35 TB/s and its operations over 67
@@ -183,6 +200,25 @@ ORACLE64_ATOL, ORACLE32_ATOL = 1e-9, 1e-4
 STEPS_PARTICLE = 200
 PROFILE_PARTICLE = 3
 STEPS_BINNED3D = 10
+# 13f: binned3d against the 3D oracle at the JAX package's 3D test config
+# (tests/test_3d.py), 100 steps, so that ~100 (repulsive) and ~340 (LJ)
+# pairs are in range by the end; its CPU bound. 13g: sharded on 4 strips
+# against binned under LJ, bitwise, at n = 262,144 for 300 steps (the
+# lattice's first pairs come in range after ~100).
+CFG_BINNED3D_ORACLE = dict(num_parts=800, ndim=3, density=7e-6, bin_capacity=8)
+STEPS_BINNED3D_ORACLE, BINNED3D_ATOL = 100, 1e-6
+N_SHARDED_LJ, STEPS_SHARDED_LJ = 262_144, 300
+# Phase 14: the 3D repulsive config at full width (bench/r3_queue.sh:47,
+# stage 2b, without its hand capacity), three arms from one initial state:
+# (a) no init spill, no repack: the whole run at the packing capacity;
+# (b) no init spill, the capacity-phase repack; (c) the defaults (spill).
+REPULSIVE3 = dict(num_parts=20_971_520, ndim=3, density=7e-6, dt=5e-4)
+REPULSIVE3_GEOM = (205, 208, 128, 11, 2)  # ys, xs, zs, capacity, cadence
+REPACK_ARMS = (
+    ("a", "no spill, no repack", dict(grid3_spill=False, grid3_repack=False)),
+    ("b", "no spill, repack", dict(grid3_spill=False, grid3_repack=True)),
+    ("c", "defaults (spill)", {}),
+)
 # Peak rates of one NVIDIA H100 SXM at 700 W (HBM3 bandwidth, dense FP32).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -1617,6 +1653,7 @@ def phase_particle(state, ref3, state3, smi: str) -> None:
     import torch
 
     from ppsim_tpu_torch import native
+    from ppsim_tpu_torch.checker import frame_distance_stats
     from ppsim_tpu_torch.config import SimConfig
     from ppsim_tpu_torch.engines import get_engine
     from ppsim_tpu_torch.harness import timed_run
@@ -1645,7 +1682,7 @@ def phase_particle(state, ref3, state3, smi: str) -> None:
         f"{int(runs[1].monitors.max_bin_count)}")
     cfg64 = SimConfig(num_parts=N_ORACLE64, dtype="float64")
     pos, vel = native.native_init(N_ORACLE64, cfg64.size, SEED)
-    npos, _ = native.native_run_oracle(pos, vel, cfg64, STEPS_ORACLE64)
+    npos, _ = native.native_run(pos, vel, cfg64, STEPS_ORACLE64, engine="oracle")
     errs = {}
     for dt in ("float64", "float32"):
         c = cfg64.with_(dtype=dt)
@@ -1751,7 +1788,183 @@ def phase_particle(state, ref3, state3, smi: str) -> None:
             "--check"]
     run_clis([("binned CLI", args), ("binned CLI float64", args + ["--dtype", "float64"])])
     phase_line("13e", "binned CLI --check PASS, float32 and float64", t0)
+
+    # ---- (f) binned3d against the 3D oracle, pairs in range --------------
+    t0 = time.perf_counter()
+    for law_kw in ({}, dict(force_law="lj", dt=1e-4)):
+        cfg_f = SimConfig(**CFG_BINNED3D_ORACLE, **law_kw)
+        st_f = init_particles(cfg_f, seed=SEED, method="fast", device=dev)
+        r_o, r_b = (get_engine(name, cfg_f, device=dev).run(
+            st_f, nsteps=STEPS_BINNED3D_ORACLE, savefreq=10) for name in ("oracle", "binned3d"))
+        err = float(np.abs(r_b.frames - r_o.frames).max())
+        pairs = [frame_distance_stats(f, cfg_f.cutoff)[2] for f in r_o.frames]
+        if err > BINNED3D_ATOL or pairs[-1] == 0:
+            raise AssertionError(f"binned3d vs oracle ({cfg_f.force_law}): max |dpos| "
+                                 f"{err:.3e} (bound {BINNED3D_ATOL:g}); pairs in range "
+                                 f"by frame {pairs}")
+        get_engine("binned3d", cfg_f, device=dev).check(r_b)
+        log(f"  binned3d vs oracle ({cfg_f.force_law}), n={cfg_f.num_parts}, "
+            f"{STEPS_BINNED3D_ORACLE} steps, {r_o.frames.shape[0]} frames: max |dpos| "
+            f"{err:.3e} (bound {BINNED3D_ATOL:g}); pairs in range by frame {pairs}; "
+            f"max_bin_count {int(r_b.monitors.max_bin_count)}")
+    phase_line("13f", "binned3d tracks the 3D oracle with pairs in range", t0)
+
+    # ---- (g) sharded == binned bitwise under LJ ---------------------------
+    t0 = time.perf_counter()
+    cfg_g = SimConfig(num_parts=N_SHARDED_LJ, force_law="lj", dt=1e-4)
+    st_g = init_particles(cfg_g, seed=SEED, method="reference", device=dev)
+    r_b = get_engine("binned", cfg_g, device=dev).run(st_g, nsteps=STEPS_SHARDED_LJ)
+    eng_g = get_engine("sharded", cfg_g, device=dev, shards=SHARDS)
+    r_s = eng_g.run(st_g, nsteps=STEPS_SHARDED_LJ)
+    differ = ((r_s.state.pos != r_b.state.pos) | (r_s.state.vel != r_b.state.vel)).any(dim=1)
+    if bool(differ.any()) or int(r_s.monitors.migrate_dropped):
+        raise AssertionError(f"sharded vs binned (LJ): {int(differ.sum())} of "
+                             f"{N_SHARDED_LJ} particles differ (bitwise parity); dropped "
+                             f"{int(r_s.monitors.migrate_dropped)}")
+    eng_g.check(r_s)
+    pairs = frame_distance_stats(r_b.state.pos.cpu().numpy(), cfg_g.cutoff)[2]
+    if pairs == 0:
+        raise AssertionError("sharded vs binned (LJ): no pair in range at the end")
+    log(f"  sharded ({SHARDS} strips) == binned bitwise under LJ (dt 1e-4), "
+        f"n={N_SHARDED_LJ}, {STEPS_SHARDED_LJ} steps: {pairs} pairs in range at the "
+        f"end; max_bin_count {int(r_s.monitors.max_bin_count)}, deferred "
+        f"{int(r_s.monitors.deferred)}")
+    phase_line("13g", "sharded == binned bitwise under LJ", t0)
     phase_line("13", "particle-list engines clean", t13)
+
+
+def phase_repack(kernels, smi: str) -> None:
+    """Phase 14: the 3D repulsive config at full width on ``cuda3d``, its
+    three arms (``REPACK_ARMS``) from one initial state. Fills the records
+    of K3, K4 and K5 on this path (arm (b), the capacity-phase repack)."""
+    import torch
+
+    from ppsim_tpu_torch.config import SimConfig
+    from ppsim_tpu_torch.engines import get_engine
+    from ppsim_tpu_torch.harness import timed_run
+    from ppsim_tpu_torch.initlib import init_particles
+    from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
+    from ppsim_tpu_torch.ops.cuda_rebin3 import (
+        rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_ypass_cuda,
+        rebin3_ypass_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    t14 = time.perf_counter()
+    cfg = SimConfig(**REPULSIVE3)
+    n = cfg.num_parts
+    path = [kernels[k] for k in ("grid3_step_repulsive", "rebin3_inplane_repulsive",
+                                 "rebin3_ypass_repulsive")]
+    ti = time.perf_counter()
+    state = init_particles(cfg, seed=SEED, method="fast", device=dev)
+    torch.cuda.synchronize()
+    log(f"init_particles fast 3D (n={n}, seed={SEED}): {time.perf_counter() - ti:.2f} s")
+    arms = {}
+    for key, label, over in REPACK_ARMS:
+        t0 = time.perf_counter()
+        c = cfg.with_(**over)
+        engine = get_engine("cuda3d", c, device=dev)
+        g = engine.geom
+        if (g.ys, g.xs, g.zs, g.capacity, engine.rebin_every) != REPULSIVE3_GEOM:
+            raise AssertionError(f"unexpected 3D repulsive geometry {g}")
+        for rec in path:
+            rec["wrapper"].launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        result, seconds = timed_run(engine, state, STEPS_MAIN, 0)
+        launches = [rec["wrapper"].launches for rec in path]
+        peak = torch.cuda.max_memory_allocated(dev)
+        if min(launches) == 0:
+            raise AssertionError(f"arm ({key}): launches {launches}: a kernel of the "
+                                 "path did not run")
+        engine.check(result)
+        check_final(result.carry.slab, result.state.pos, n, 3, cfg.size)
+        final_frame_check(f"arm ({key})", result.state.pos, c)
+        m = result.monitors
+        attempts = getattr(engine, "_last_repack_attempts", None)
+        switch = getattr(engine, "_last_repack_switch", None)
+        shown = (attempts if attempts is None or len(attempts) <= 6
+                 else f"{attempts[:3]} ... {attempts[-2:]} ({len(attempts)})")
+        log(f"  arm ({key}) {label}: n={n} 3D repulsive steps={STEPS_MAIN} "
+            f"cadence {engine.rebin_every}: {seconds:.4f} s = "
+            f"{n * STEPS_MAIN / seconds / 1e6:.2f} M particle-steps/s ({smi})")
+        log(f"    packing capacity {engine._pack_capacity}, capacity at the end "
+            f"{engine.capacity}, init spill {engine._pack_spill}; repack attempts "
+            f"{shown}, switch {switch}")
+        log(f"    monitors: max_bin_count {int(m.max_bin_count)} dropped "
+            f"{int(m.migrate_dropped)} max_speed {float(m.max_speed):.4f} deferred "
+            f"{int(m.deferred)}; every pid 0..{n - 1} in exactly one slot; peak "
+            f"device memory {peak} bytes; launches K3 {launches[0]}, K4 "
+            f"{launches[1]}, K5 {launches[2]}")
+        slab = result.carry.slab
+        a3 = (*slab[:6], engine.geom, c.cutoff, c.min_r, c.mass, c.dt, c.size,
+              c.force_law, c.law_params)
+        k3_ms = late_ms(lambda: grid3_step_cuda(*a3))
+        log(f"    K3 on the final slab (capacity {engine.capacity}): {k3_ms:.4f} "
+            f"ms/call ({smi})")
+        arms[key] = dict(seconds=seconds, capacity=engine.capacity, k3_ms=k3_ms,
+                         state=result.state, launches=launches)
+        if key == "b":
+            final_b = (slab, engine.geom, c)
+        del result, slab, a3, engine
+        torch.cuda.empty_cache()
+        phase_line(f"14{key}", f"3D repulsive arm ({key}) clean", t0)
+
+    # ---- (b) against (a), and the kernels on (b)'s final slab -------------
+    t0 = time.perf_counter()
+    a, b, c_ = arms["a"], arms["b"], arms["c"]
+    if b["capacity"] == a["capacity"]:
+        assert_equal("arm (b) pos vs arm (a)", b["state"].pos, a["state"].pos)
+        assert_equal("arm (b) vel vs arm (a)", b["state"].vel, a["state"].vel)
+        log("  arm (b) never committed a repack: its final state is bitwise equal "
+            "to arm (a)'s")
+    else:
+        log(f"  arm (b) committed a repack: largest difference from arm (a) pos "
+            f"{max_abs_diff(b['state'].pos, a['state'].pos):.3e}, vel "
+            f"{max_abs_diff(b['state'].vel, a['state'].vel):.3e}")
+    log(f"  seconds (a) {a['seconds']:.4f}, (b) {b['seconds']:.4f}, (c) "
+        f"{c_['seconds']:.4f}; (a) / (c) = {a['seconds'] / c_['seconds']:.4f}, "
+        f"(b) / (c) = {b['seconds'] / c_['seconds']:.4f}; K3 on the final slabs: "
+        f"capacity {a['capacity']} {a['k3_ms']:.4f} ms, capacity {c_['capacity']} "
+        f"{c_['k3_ms']:.4f} ms ({smi})")
+    slab, geom, cfg_b = final_b
+    k3, k4, k5 = path
+    for rec, n_launch in zip(path, b["launches"]):
+        rec["launches"] = n_launch
+    k3["max_abs_err"] = k3_compare(f"3D repulsive arm (b) final slab (capacity "
+                                   f"{geom.capacity})", slab, geom, cfg_b)
+    k45_compare(f"3D repulsive arm (b) final slab (capacity {geom.capacity})", slab,
+                geom, cfg_b.evac_capacity)
+    k4["max_abs_err"] = k5["max_abs_err"] = 0.0
+    evac = cfg_b.evac_capacity
+    a3 = (*slab[:6], geom, cfg_b.cutoff, cfg_b.min_r, cfg_b.mass, cfg_b.dt,
+          cfg_b.size, cfg_b.force_law, cfg_b.law_params)
+    mid, cnt = rebin3_inplane_cuda(slab, geom, evac)
+    kern_fns = (lambda: grid3_step_cuda(*a3), lambda: rebin3_inplane_cuda(slab, geom, evac),
+                lambda: rebin3_ypass_cuda(mid, cnt, geom, evac))
+    plain_fns = (lambda: grid3_step_plain(*a3), lambda: rebin3_inplane_plain(slab, geom, evac),
+                 lambda: rebin3_ypass_plain(mid, cnt, geom, evac))
+    plane_b = 4 * slab.xl.numel()
+    bin_b = plane_b // geom.capacity
+    pairs = candidate_pairs(slab.pid)
+    for rec, kern, plain, nbytes, flops in zip(
+            path, kern_fns, plain_fns,
+            (12 * plane_b + bin_b, 14 * plane_b + 5 * bin_b, 14 * plane_b + 4 * bin_b),
+            (8 * pairs, 0, 0)):
+        p0 = cuda_ms(plain, 1)
+        ms = late_ms(kern)
+        p1 = cuda_ms(plain, 1)
+        bound, by = bound_of(nbytes, flops)
+        rec.update(ms=ms, plain_ms=min(p0, p1), bound_ms=bound, bound_by=by)
+    k3["ms_by_capacity"] = {str(a["capacity"]): a["k3_ms"], str(c_["capacity"]): c_["k3_ms"]}
+    log(f"  on arm (b)'s final slab ({geom.ys}x{geom.xs}x{geom.zs} cap "
+        f"{geom.capacity}; ms/call; {smi}): " + "; ".join(
+            f"{rec['name']} {rec['ms']:.4f} (plain {rec['plain_ms']:.3f}, bound "
+            f"{rec['bound_ms']:.4f} by {rec['bound_by']})" for rec in path)
+        + f"; {pairs} candidate pairs")
+    del slab, mid, cnt, a3, final_b, arms
+    torch.cuda.empty_cache()
+    phase_line("14d", "K3, K4, K5 agree with their plain twins on arm (b)'s final slab", t0)
+    phase_line("14", "3D repulsive config: three arms clean", t14)
 
 
 def main() -> int:
@@ -1829,6 +2042,14 @@ def main() -> int:
                                 "pallas_grid.py:583", grid_step_cuda),
         "rebin_axes_tile": entry("rebin_axes_tile", "rebin_axes.cu",
                                  "pallas_rebin.py:646", rebin_axes_call_cuda),
+        # phase 14's path: the 3D kernels on the 3D repulsive config with the
+        # capacity-phase repack
+        "grid3_step_repulsive": entry("grid3_step_repulsive", "grid3_step.cu",
+                                      "pallas_grid3d.py:42", grid3_step_cuda),
+        "rebin3_inplane_repulsive": entry("rebin3_inplane_repulsive", "rebin3.cu",
+                                          "pallas_rebin3.py:272", rebin3_inplane_cuda),
+        "rebin3_ypass_repulsive": entry("rebin3_ypass_repulsive", "rebin3.cu",
+                                        "pallas_rebin3.py:284", rebin3_ypass_cuda),
     }
 
     # ---- phase 0: the card and the build ---------------------------------
@@ -2003,6 +2224,9 @@ def main() -> int:
     phase_tile(kernels, state, cfg, ref3, ref9, smi)
     torch.cuda.empty_cache()
     phase_particle(state, ref3, state3, smi)
+    del state, state3, ref3, ref6, ref9
+    torch.cuda.empty_cache()
+    phase_repack(kernels, smi)
 
     out = [{k: v for k, v in rec.items() if k != "wrapper"}
            for rec in kernels.values()]

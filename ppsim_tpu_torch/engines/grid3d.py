@@ -12,10 +12,11 @@ The 2D slab engine's run driver, monitors and save path carry over (fields
 are ``(capacity, Y, X, Z)``, ``ops/grid3d_ops.py``); the rebin cadence is
 ``rebin3_every`` or the chosen geometry's auto cadence. The initial pack
 spills or auto-raises when the t = 0 lattice overflows, and an auto-capacity
-run that drops particles escalates and re-runs. Not ported: the JAX
-package's capacity-phase repack (``repack_plan`` / ``attempt_repack``), which
-is off for the LJ law by design (``_TAIL_SLOTS["lj"] = 1``) and so never runs
-at the stretch config.
+run that drops particles escalates and re-runs. When the pack raised the
+capacity, the timed runs (``harness.timed_run_repeats``) take a prologue
+at that packing capacity and then repack the slab down to the run capacity
+(``repack_plan`` / ``attempt_repack`` / ``commit_repack``): on by default for
+the repulsive law, off for LJ, whose run outgrows its packing.
 """
 
 from __future__ import annotations
@@ -56,6 +57,16 @@ class Grid3DEngine(GridEngine):
     # force law (the JAX package's measured run maxima: the repulsive law
     # never exceeds its lattice packing, LJ clusters one slot past it).
     _TAIL_SLOTS = {"repulsive": 0, "lj": 1}
+    # Capacity-phase repack: the sharded 3D engine opts out (the repack's
+    # global pack would not know its strips).
+    _repack_ok = True
+    # The first attempt (steps), when config.grid3_prologue_steps is None,
+    # and the last step a failed attempt may retry at. The repulsive
+    # dynamics disperse the t = 0 lattice slowly: the JAX package measured
+    # a by-position demand above the packing capacity at step 40 of the
+    # n = 20.97M run, so the window is wide.
+    _REPACK_MIN_STEPS = 40
+    _REPACK_MAX_STEPS = 480
 
     def __init__(self, config, device="cuda"):
         Engine.__init__(self, config, device=device)  # no 2D geometry
@@ -66,6 +77,7 @@ class Grid3DEngine(GridEngine):
         self.geom = Geometry3S.for_config(config)
         self._pack_capacity = None  # known after the first init_carry
         self._pack_spill = False
+        self._escalated_floor = 0  # the capacity a drop escalated to
 
     @property
     def rebin_every(self) -> int:
@@ -166,11 +178,68 @@ class Grid3DEngine(GridEngine):
         self._pack_capacity = self.geom.capacity
         return GridCarry(slab, seed_pack_monitors(overflow, self.capacity))
 
+    # ---- capacity-phase repack ---------------------------------------------
+    # The t = 0 lattice can pack one slot past the capacity the run needs
+    # (n = 20.97M 3D repulsive: 12 against 11), and K3's pair work grows
+    # with capacity squared. So the timed runs take a prologue at the
+    # packing capacity and then repack the slab down to the run capacity:
+    # a gather and a pack by current position, committed only if the pack
+    # overflowed nothing.
+    def repack_plan(self, nsteps: int):
+        """``(min_steps, max_steps)`` of the repack attempts, or None: off
+        before the first ``init_carry``, when the config or the law turns it
+        off (``grid3_repack=None`` is on iff the law has no run-tail slot),
+        when the run capacity is not below the packing capacity, or when
+        the first attempt would come at or after the last step."""
+        cfg = self.config
+        if self._pack_capacity is None:
+            return None
+        enabled = cfg.grid3_repack
+        if enabled is None:
+            enabled = self._TAIL_SLOTS.get(cfg.force_law, 1) == 0
+        if (not enabled or not self._repack_ok
+                or self._repack_target() >= self._pack_capacity):
+            return None
+        K = self.rebin_every
+        min_s = cfg.grid3_prologue_steps or self._REPACK_MIN_STEPS
+        min_s = -(-min_s // K) * K  # attempts land on rebin steps
+        if min_s >= nsteps:
+            return None
+        return min_s, max(min_s, min(nsteps // 2, self._REPACK_MAX_STEPS))
+
+    def _repack_target(self) -> int:
+        """The chooser's capacity for this config, raised to a capacity that
+        a drop escalated to (a measured run demand: never repacked away)."""
+        base = Geometry3S.for_config(self.config).capacity
+        return max(base, self._escalated_floor)
+
+    def attempt_repack(self, carry: GridCarry):
+        """Repack ``carry`` from the current capacity to the run target.
+        Returns ``(new_carry, overflow)``, overflow a host int (one wait for
+        the device): 0 means ``new_carry`` is at the target capacity and the
+        caller must :meth:`commit_repack`; > 0 means the pack by current
+        position would have dropped particles, and ``new_carry`` is
+        ``carry`` itself, untouched. The monitors carry over unchanged."""
+        pos, vel = grid3d_ops.slab3_to_particles(carry.slab, self.geom,
+                                                 self.config.num_parts)
+        to_geom = dataclasses.replace(self.geom, capacity=self._repack_target())
+        slab, overflow = grid3d_ops.slab3_from_particles(pos, vel, to_geom)
+        overflow = int(overflow)
+        if overflow:
+            return carry, overflow
+        return GridCarry(slab, carry.monitors), 0
+
+    def commit_repack(self) -> None:
+        """Flip the engine to the run capacity after a verified repack."""
+        self._set_capacity(self._repack_target())
+
     # ---- drop-detected capacity escalation ---------------------------------
     def maybe_escalate_after_drop(self, result) -> bool:
         """An auto-capacity run that dropped particles raises capacity one
         slot and asks the caller to re-run from the initial state; a hand
-        ``grid3_capacity`` never retries."""
+        ``grid3_capacity`` never retries. The raised capacity becomes the
+        floor of the repack target and of the packing capacity, so the
+        re-run never repacks back down to the capacity that dropped."""
         dropped = int(result.monitors.migrate_dropped)
         if self.config.grid3_capacity is not None or dropped == 0:
             return False
@@ -178,6 +247,7 @@ class Grid3DEngine(GridEngine):
         print(f"{self.name}: run dropped {dropped} particle(s) at capacity "
               f"{self.geom.capacity}; escalating to {new_cap} and re-running "
               "from the initial state", file=sys.stderr)
+        self._escalated_floor = new_cap
         if self._pack_capacity is not None:
             self._pack_capacity = max(self._pack_capacity, new_cap)
         self._set_capacity(new_cap)

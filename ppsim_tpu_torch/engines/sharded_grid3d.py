@@ -58,6 +58,9 @@ class ShardedGrid3DEngine(Grid3DEngine):
     # Drop-detected capacity escalation, as in the JAX engine: a capacity
     # change leaves the strips (ys_local, ys_pad) as they are.
     _capacity_retry = True
+    # No capacity-phase repack, as in the JAX engine: its global pack
+    # would run on the whole slab, not on the strips.
+    _repack_ok = False
     # profiling.phase_times' variant seam: "move" or "rebin" skips that
     # phase (the JAX engine's trace-time flag).
     _phase_disable = None

@@ -13,6 +13,10 @@ after ``torch.cuda.synchronize()``.
     python -m ppsim_tpu_torch -n 20971520 -s 42 --engine cuda --grid-rebin-mode dirs9
     python -m ppsim_tpu_torch -n 20971520 --ndim 3 --density 7e-6 \
         --force-law lj --dt 1e-4 -s 42 --engine cuda3d
+    python -m ppsim_tpu_torch -n 20971520 --ndim 3 --density 7e-6 -s 42 \
+        --grid3-spill 0 --grid3-repack 1 --engine cuda3d
+    python -m ppsim_tpu_torch -n 262144 -s 42 --steps 400 --checkpoint-out a.npz
+    python -m ppsim_tpu_torch -n 262144 --steps 600 --resume a.npz
     python -m ppsim_tpu_torch -n 20971520 -s 42 --engine sharded_grid --shards 4
     python -m ppsim_tpu_torch -n 20971520 --ndim 3 --density 7e-6 \
         --force-law lj --dt 1e-4 -s 42 --engine sharded_grid3d --shards 4
@@ -42,7 +46,9 @@ import torch.distributed as dist
 from ppsim_tpu_torch.config import SimConfig
 from ppsim_tpu_torch.engines import engine_names, get_engine
 from ppsim_tpu_torch.initlib import init_particles
-from ppsim_tpu_torch.io import MetricsWriter, write_trajectory
+from ppsim_tpu_torch.io import (
+    MetricsWriter, load_checkpoint, save_checkpoint, write_trajectory,
+)
 from ppsim_tpu_torch.profiling import trace
 from ppsim_tpu_torch.state import ParticleState
 
@@ -74,6 +80,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--savefreq", type=int, default=None, help="override savefreq (default 10)")
     p.add_argument("--check", action="store_true",
                    help="run the absmin/absavg correctness checker on the run's frames")
+    p.add_argument("--checkpoint-out", type=str, default=None,
+                   help="write a full-state checkpoint (.npz) after the run")
+    p.add_argument("--resume", type=str, default=None,
+                   help="resume from a checkpoint instead of initializing")
     p.add_argument("--ndim", type=int, default=2, choices=(2, 3),
                    help="2 (reference physics) or 3 (the stretch config; "
                         "engines: " + ", ".join(engine_names(3)) + ")")
@@ -112,6 +122,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="3D engines: park the t=0 packing overflow one bin "
                         "over instead of raising capacity (default auto: on "
                         "with auto capacity)")
+    p.add_argument("--grid3-repack", type=int, default=None, choices=(0, 1),
+                   help="3D grid engines: capacity-phase repack (prologue at "
+                        "the t=0 packing capacity, verified repack down to "
+                        "the run capacity). Default auto: on for the "
+                        "repulsive law, off for lj")
+    p.add_argument("--grid3-prologue-steps", type=int, default=None,
+                   help="3D grid engines: steps before the first repack "
+                        "attempt (default auto)")
     p.add_argument("--grid-rebin-mode", default=None, choices=("dirs9", "axes"),
                    help="2D grid engines: rebin algorithm (axes = the "
                         "axis-factorized default; dirs9 = the 9-direction "
@@ -147,14 +165,55 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def warm_up(engine, state: ParticleState) -> None:
-    """Untimed warm-up: build the kernels and run one rebin period (pack,
-    rebin_every - 1 plain steps, one step with rebin), so every kernel and
-    allocation the timed region uses has run once."""
-    carry = engine.init_carry(state)
-    carry, _ = engine.run_steps(carry, engine.rebin_every, 0)
-    engine.final_state(carry)
-    _sync(engine.device)
+def _repack(engine, carry):
+    """One repack attempt, committed if it overflowed nothing. Returns
+    ``(carry, committed)``; a failed attempt returns the carry as it was."""
+    carry, overflow = engine.attempt_repack(carry)
+    if overflow == 0:
+        engine.commit_repack()
+    return carry, overflow == 0
+
+
+def discover_repack(engine, carry, nsteps: int, plan):
+    """The repack's discovery pass from ``carry`` (the packed initial
+    state), ``plan = (min_s, max_s)`` from ``engine.repack_plan``: an
+    attempt after every step ``i`` that is a multiple of the rebin cadence
+    with ``min_s <= i < nsteps``, while ``i <= max_s`` or no attempt has
+    been made, until one commits. It stops at the commit or the last
+    attempt: a capacity change builds nothing new, so later steps would
+    warm nothing. Returns ``(carry, done, attempts, switch_step)``, the
+    carry after step ``done``, the last attempt's."""
+    cadence = engine.rebin_every
+    min_s, max_s = plan
+    first = -(-min_s // cadence) * cadence
+    if first >= nsteps:
+        return carry, 0, [], None
+    attempts, switched = [], []
+
+    def attempt(carry, i):
+        if i < first or i % cadence:
+            return carry, False
+        attempts.append(i)
+        carry, committed = _repack(engine, carry)
+        if committed:
+            switched.append(i)
+        later = i + cadence
+        return carry, committed or later > max_s or later >= nsteps
+
+    carry, _ = engine.run_steps(carry, nsteps - 1, 0, after_step=attempt)
+    return carry, attempts[-1], attempts, (switched[0] if switched else None)
+
+
+def run_switched(engine, carry, nsteps: int, savefreq: int, switch_at=None):
+    """``engine.run_steps`` with the committing repack replayed after step
+    ``switch_at`` (None: no repack), before that step's frame."""
+    def replay(carry, i):
+        if i == switch_at:
+            carry, _ = _repack(engine, carry)
+        return carry, False
+
+    return engine.run_steps(carry, nsteps, savefreq,
+                            after_step=None if switch_at is None else replay)
 
 
 def timed_run_repeats(engine, state: ParticleState, nsteps: int, savefreq: int,
@@ -163,15 +222,35 @@ def timed_run_repeats(engine, state: ParticleState, nsteps: int, savefreq: int,
     (``init_carry``), all steps and the final gather inside the timer; the
     host-to-device copy of the initial state and a warm-up outside it.
     Returns ``(RunResult, [seconds, ...])``; frames and monitors are copied
-    to the host after the last timer stops."""
+    to the host after the last timer stops.
+
+    The warm-up builds the kernels and runs one rebin period (pack,
+    rebin_every - 1 plain steps, one step with rebin), so every kernel and
+    allocation the timed region uses has run once. With a capacity-phase
+    repack (``engine.repack_plan``, consulted after the first pack) the
+    discovery pass (:func:`discover_repack`) comes first, and the rebin
+    period follows it at the capacity it ended at; it records the steps it
+    attempted at and the one that committed in
+    ``engine._last_repack_attempts`` and ``engine._last_repack_switch``
+    (runs are deterministic). The timed runs replay the committing attempt
+    alone, its wait for the overflow included."""
     state = state.to(engine.device)
-    warm_up(engine, state)
+    carry = engine.init_carry(state)  # the first call measures the packing
+    plan = engine.repack_plan(nsteps)
+    done, switch_at = 0, None
+    if plan is not None:
+        carry, done, attempts, switch_at = discover_repack(engine, carry, nsteps, plan)
+        engine._last_repack_attempts, engine._last_repack_switch = attempts, switch_at
+    carry, _ = engine.run_steps(carry, engine.rebin_every, 0, start=done)
+    engine.final_state(carry)
+    _sync(engine.device)
+    del carry
     times = []
     for _ in range(max(1, repeats)):
         _sync(engine.device)
         t0 = time.perf_counter()
-        carry = engine.init_carry(state)
-        carry, frames = engine.run_steps(carry, nsteps, savefreq)
+        carry, frames = run_switched(engine, engine.init_carry(state), nsteps,
+                                     savefreq, switch_at)
         final = engine.final_state(carry)
         _sync(engine.device)
         times.append(time.perf_counter() - t0)
@@ -211,6 +290,10 @@ def config_from_args(args) -> SimConfig:
         kw["grid_rebin_mode"] = args.grid_rebin_mode
     if args.grid3_spill is not None:
         kw["grid3_spill"] = bool(args.grid3_spill)
+    if args.grid3_repack is not None:
+        kw["grid3_repack"] = bool(args.grid3_repack)
+    if args.grid3_prologue_steps is not None:
+        kw["grid3_prologue_steps"] = args.grid3_prologue_steps
     return SimConfig(num_parts=args.n, ndim=args.ndim, force_law=args.force_law,
                      dtype=args.dtype, bin_scale=args.bin_scale,
                      bin_capacity=args.bin_capacity, **kw)
@@ -237,8 +320,18 @@ def main(argv=None) -> int:
         options["shards"] = args.shards
     try:
         engine = get_engine(engine_name, config, device=args.device, **options)
-        state = init_particles(config, seed=args.s, method=args.init,
-                               device=engine.device)
+        start_step = 0
+        if args.resume:
+            state, start_step, _ = load_checkpoint(args.resume, device=engine.device)
+            if tuple(state.pos.shape) != (config.num_parts, config.ndim):
+                parser.error(f"--resume {args.resume} holds positions of shape "
+                             f"{tuple(state.pos.shape)}; -n {config.num_parts} "
+                             f"--ndim {config.ndim} needs "
+                             f"({config.num_parts}, {config.ndim})")
+            state = state.to(dtype=config.torch_dtype)
+        else:
+            state = init_particles(config, seed=args.s, method=args.init,
+                                   device=engine.device)
         with trace(args.trace) if args.trace else contextlib.nullcontext():
             result, seconds = timed_run(engine, state, nsteps, effective_savefreq)
         engine.check(result)
@@ -252,6 +345,8 @@ def main(argv=None) -> int:
 
     if args.o:
         write_trajectory(args.o, result.frames, config.size)
+    if args.checkpoint_out:
+        save_checkpoint(args.checkpoint_out, result.state, start_step + nsteps, config)
 
     # The benchmark interface line (part1/main.cpp:147) — keep byte format.
     print(f"Simulation Time = {seconds:g} seconds for {args.n} particles.")

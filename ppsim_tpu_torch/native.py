@@ -1,11 +1,12 @@
 """ctypes bindings for the native C++ library (``native/ppsim_native.cpp``),
 the port's own loader.
 
-The port uses three of its entry points: the bit-faithful mt19937
+The port uses all four of its entry points: the bit-faithful mt19937
 initializer (``ppsim_init_particles``, which makes n = 20.97M initialise in
 seconds instead of the Python loop's hours), the cell-list pair statistics
-of the checker (``ppsim_frame_stats``) and the float64 brute-force engine
-(``ppsim_run_oracle``), the trust anchor of the oracle engine. The unchanged source is compiled with ``g++``
+of the checker (``ppsim_frame_stats``), and the float64 engines, brute force
+(``ppsim_run_oracle``, the trust anchor of the oracle engine) and binned
+(``ppsim_run_cells``). The unchanged source is compiled with ``g++``
 into the port's build directory at first use (:mod:`ppsim_tpu_torch._build`);
 without a compiler, :func:`available` is False and callers fall back to numpy.
 """
@@ -20,7 +21,7 @@ import numpy as np
 
 from ppsim_tpu_torch._build import build_shared
 
-__all__ = ["load", "available", "native_init", "native_frame_stats", "native_run_oracle"]
+__all__ = ["load", "available", "native_init", "native_frame_stats", "native_run"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_ROOT, "native", "ppsim_native.cpp")
@@ -49,8 +50,9 @@ def load() -> Optional[ctypes.CDLL]:
     lib.ppsim_init_particles.restype = None
     lib.ppsim_frame_stats.argtypes = [_D, i64, i32, f64, _D]
     lib.ppsim_frame_stats.restype = None
-    lib.ppsim_run_oracle.argtypes = [_D, _D, _D, _D, i64, f64, i64, f64, f64, f64, f64]
-    lib.ppsim_run_oracle.restype = None
+    for fn in (lib.ppsim_run_oracle, lib.ppsim_run_cells):
+        fn.argtypes = [_D, _D, _D, _D, i64, f64, i64, f64, f64, f64, f64]
+        fn.restype = None
     _lib = lib
     return _lib
 
@@ -88,20 +90,21 @@ def native_frame_stats(pos: np.ndarray, cutoff: float):
     return dmin, float(out[1]), int(out[2])
 
 
-def native_run_oracle(pos, vel, config, nsteps: int):
-    """``nsteps`` of the native float64 O(N^2) engine (force, then the
-    reference's bounce loop) from (N, 2) ``pos`` / ``vel``; returns float64
-    numpy (pos, vel). The inputs are copied."""
+def native_run(pos, vel, config, nsteps: int, engine: str = "cells"):
+    """``nsteps`` of a native float64 engine, ``"cells"`` (binned) or
+    ``"oracle"`` (O(N^2)), each a force pass then the reference's bounce
+    loop, from (N, 2) ``pos`` / ``vel``; returns float64 numpy (pos, vel).
+    The inputs are copied."""
     lib = load()
     if lib is None:
         raise RuntimeError("native library unavailable (g++ build failed?)")
+    fn = {"oracle": lib.ppsim_run_oracle, "cells": lib.ppsim_run_cells}[engine]
     pos = np.asarray(pos, dtype=np.float64)
     vel = np.asarray(vel, dtype=np.float64)
     if pos.ndim != 2 or pos.shape[1] != 2 or vel.shape != pos.shape:
-        raise ValueError(f"the native oracle is 2D: expected (N, 2) pos/vel, got "
+        raise ValueError(f"the native engines are 2D: expected (N, 2) pos/vel, got "
                          f"{pos.shape} / {vel.shape}")
     x, y, vx, vy = (np.ascontiguousarray(a[:, k]) for a in (pos, vel) for k in (0, 1))
-    lib.ppsim_run_oracle(_ptr(x), _ptr(y), _ptr(vx), _ptr(vy), pos.shape[0],
-                         config.size, nsteps, config.cutoff, config.min_r,
-                         config.mass, config.dt)
+    fn(_ptr(x), _ptr(y), _ptr(vx), _ptr(vy), pos.shape[0], config.size, nsteps,
+       config.cutoff, config.min_r, config.mass, config.dt)
     return np.stack([x, y], -1), np.stack([vx, vy], -1)

@@ -242,7 +242,7 @@ def test_oracle_tracks_native_oracle(dtype):
     st = make_state(pos, vel, dtype=cfg.torch_dtype)
     res = get_engine("oracle", cfg, device="cpu").run(st, nsteps=10, savefreq=5)
     assert res.frames.dtype == np.dtype(dtype)
-    npos, _ = native.native_run_oracle(pos, vel, cfg, 10)
+    npos, _ = native.native_run(pos, vel, cfg, 10, engine="oracle")
     err = float(np.abs(res.state.pos.double().numpy() - npos).max())
     assert err < (1e-4 if dtype == "float32" else 1e-9), err
 
