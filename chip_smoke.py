@@ -129,13 +129,27 @@ Phases, each printing its result and seconds on its own line:
    launches, a checker PASS on the final frame and K3's time on its final
    slab. (b)'s final state bitwise equal to (a)'s if it never committed
    (else its largest difference); K3, K4 and K5 against their plain twins
-   on (b)'s final slab and their times there.
+   on (b)'s final slab and their times there;
+15. the roofline probes (``ppsim_tpu_torch/roofline.py``, the port of
+   ``bench/mfu.py``): (a) ``fma_chain`` against its twin for 1, 2, 4 and 8
+   chains, 16 steps on a seeded (4096, 1024) input in [0.5, 1) (finite;
+   rtol 1e-5), and its FFMA count in the SASS (``cuobjdump``); (b)
+   ``stream_add`` bitwise equal to its twin on a length that is not a
+   multiple of 4 and on 1 GiB, and 16 chained calls from ones giving 17
+   everywhere; each kernel's time at the probe's shape beside its twin's,
+   ``torch.add(x, 1.0, out=y)`` on the same 1 GiB (stream_add's library
+   row), cuBLAS SGEMM at 8192^3 with TF32 off (a yardstick for the FMA
+   probe), and the SM clocks before and after the FMA runs; (c)
+   ``roofline.main([])`` at full width (both probes at mfu.py's defaults,
+   the step numbers at n = 20,971,520): its JSON line, the static step
+   counts, and launches 48 x 6 and 16 x 6.
 
 The line before the last is a JSON object with each kernel's launches in its
 full-width run (phase 3 for K1 and K2, phase 6 for K3-K5, phase 9 for K6-K8,
 phase 10 for the 2D shard forms, phase 11 for the 3D ones, phase 12b for the
 tile forms, phase 14's arm (b) for the ``*_repulsive`` records, which add
-``ms_by_capacity``, K3 on the final slabs of arms (a) and (c)),
+``ms_by_capacity``, K3 on the final slabs of arms (a) and (c), phase 15c
+for the probes, whose ``stream_add`` record has a ``library_ms``),
 its largest
 difference from the plain twin, its time beside the plain twin's and its
 bound (the larger of its bytes over 3.35 TB/s and its operations over 67
@@ -219,6 +233,17 @@ REPACK_ARMS = (
     ("b", "no spill, repack", dict(grid3_spill=False, grid3_repack=True)),
     ("c", "defaults (spill)", {}),
 )
+# Phase 15: the roofline probes. fma_chain against its twin at 16 steps on
+# a seeded input in [0.5, 1) (at the probe's 256 steps every value
+# overflows to inf: b ~1.5 and 1.5^256 > 3.4e38). The kernel's FFMA rounds
+# once where the twin rounds the product and the sum apart, up to half an
+# ulp (2^-24 relative) a step; b >= 1 carries each step's error forward
+# unchanged, so 16 steps stay within 16 * 2^-24 ~ 1e-6 relative, and the
+# chains' terms are all positive (their sum cancels nothing).
+FMA_RTOL = 1e-5
+FMA_CHECK_ITERS = 16
+STREAM_RAGGED = 1_000_003  # a length that is not a multiple of 4
+SGEMM_N = 8192  # cuBLAS SGEMM yardstick for the FMA probe, TF32 off
 # Peak rates of one NVIDIA H100 SXM at 700 W (HBM3 bandwidth, dense FP32).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -1967,6 +1992,185 @@ def phase_repack(kernels, smi: str) -> None:
     phase_line("14", "3D repulsive config: three arms clean", t14)
 
 
+def smi_query(fields: str) -> str:
+    """One ``nvidia-smi --query-gpu`` reading of the first card."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def ffma_counts() -> dict:
+    """FFMA instructions in each fma_chain instance of the loaded kernel
+    library (``cuobjdump -sass``), or {} where cuobjdump is missing."""
+    from ppsim_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", _build._kernels_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            name = fn if "fma_chain_kernel" in fn else None
+            if name:
+                counts[name] = 0
+        elif name and "FFMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def phase_roofline(kernels, smi: str) -> None:
+    """Phase 15: the roofline probes. (a) fma_chain against its twin, (b)
+    stream_add against its twin and 16 chained calls over 1 GiB, the
+    yardsticks, then (c) ``roofline.main([])`` at full width (the main path
+    of the two kernels). Fills their records."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from ppsim_tpu_torch import roofline
+    from ppsim_tpu_torch.ops.cuda_roofline import (
+        FMA_CHAINS, fma_chain_cuda, fma_chain_plain, stream_add_cuda, stream_add_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    t15 = time.perf_counter()
+    k_fma, k_stream = kernels["fma_chain"], kernels["stream_add"]
+    # the probes' shapes (bench/mfu.py's defaults)
+    rows, cols, iters, calls_fma, chains = 4096, 1024, 256, 48, 8
+    n_stream, calls_stream = 1024 * 1024 * 1024 // 4, 16
+
+    # ---- (a) fma_chain against its twin ----------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.uniform(0.5, 1.0, (rows, cols)).astype(np.float32)).to(dev)
+    errs = []
+    for c in FMA_CHAINS:
+        got = fma_chain_cuda(x, FMA_CHECK_ITERS, c)
+        want = fma_chain_plain(x, FMA_CHECK_ITERS, c)
+        if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
+            raise AssertionError(f"fma_chain chains={c}: values not finite")
+        errs.append(assert_close(f"fma_chain chains={c}", got, want, FMA_RTOL, 0.0))
+        rel = float(((got.double() - want.double()).abs() / want.double().abs()).max())
+        log(f"  fma_chain chains={c} iters={FMA_CHECK_ITERS} on ({rows}, {cols}) in "
+            f"[0.5, 1): allclose (rtol {FMA_RTOL:g}); max abs diff {errs[-1]:.3e}, max "
+            f"rel {rel:.3e}, output in [{float(want.min()):.4g}, {float(want.max()):.4g}]")
+    k_fma["max_abs_err"] = max(errs)
+    for name, count in ffma_counts().items():
+        log(f"  SASS: {name}: {count} FFMA")
+    phase_line("15a", "fma_chain agrees with its twin, chains 1, 2, 4, 8", t0)
+
+    # ---- (b) stream_add against its twin, then 16 chained calls ------------
+    t0 = time.perf_counter()
+    xr = torch.from_numpy(rng.standard_normal(STREAM_RAGGED).astype(np.float32)).to(dev)
+    assert_equal(f"stream_add n={STREAM_RAGGED}", stream_add_cuda(xr), stream_add_plain(xr))
+    xs = torch.randn(n_stream // 2048, 2048, device=dev)
+    ys = torch.empty_like(xs)
+    assert_equal("stream_add 1 GiB", stream_add_cuda(xs, out=ys), stream_add_plain(xs))
+    ones = torch.ones(n_stream // 2048, 2048, device=dev)
+    final = roofline._chained(stream_add_cuda, ones, calls_stream)()
+    if not bool((final == 1.0 + calls_stream).all()):
+        raise AssertionError(f"stream_add x {calls_stream} from ones: "
+                             f"{int((final != 1.0 + calls_stream).sum())} elements not "
+                             f"{1.0 + calls_stream}")
+    k_stream["max_abs_err"] = 0.0
+    log(f"  stream_add bitwise equal to x + 1 at n={STREAM_RAGGED} and on 1 GiB; "
+        f"{calls_stream} chained calls from ones: every element "
+        f"{1.0 + calls_stream}")
+    del xr, final, ones
+    phase_line("15b", "stream_add bitwise equal to its twin", t0)
+
+    # ---- times and the yardsticks -----------------------------------------
+    t0 = time.perf_counter()
+    xf = torch.full((rows, cols), 0.999, dtype=torch.float32, device=dev)
+    yf = torch.empty_like(xf)
+    clocks = [smi_query("clocks.sm,clocks.max.sm")]
+    p0 = cuda_ms(lambda: fma_chain_plain(xf, iters, chains), 1)
+    fma_ms = min(cuda_ms(lambda: fma_chain_cuda(xf, iters, chains, out=yf), 48)
+                 for _ in range(2))
+    p1 = cuda_ms(lambda: fma_chain_plain(xf, iters, chains), 1)
+    clocks.append(smi_query("clocks.sm,clocks.max.sm"))
+    fma_flops = rows * cols * iters * chains * 2
+    bound, by = bound_of(8 * rows * cols, fma_flops)
+    k_fma.update(ms=fma_ms, plain_ms=min(p0, p1), bound_ms=bound, bound_by=by)
+    log(f"  fma_chain ({rows}, {cols}) iters {iters} chains {chains}: {fma_ms:.4f} ms/call "
+        f"= {fma_flops / fma_ms / 1e9:.3f} TFLOP/s; plain {p0:.3f} {p1:.3f} ms; bound "
+        f"{bound:.4f} ms ({by}); SM clock, max before / after: {clocks[0]} / "
+        f"{clocks[1]} ({smi})")
+    a = torch.randn(SGEMM_N, SGEMM_N, device=dev)
+    b = torch.randn(SGEMM_N, SGEMM_N, device=dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gemm_ms = min(cuda_ms(lambda: torch.matmul(a, b), 5) for _ in range(2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"  yardstick: cuBLAS SGEMM {SGEMM_N}^3 (TF32 off) {gemm_ms:.4f} ms = "
+        f"{2 * SGEMM_N**3 / gemm_ms / 1e9:.3f} TFLOP/s ({smi})")
+    del a, b, xf, yf
+    p0 = cuda_ms(lambda: stream_add_plain(xs, out=ys), 16)
+    lib0 = cuda_ms(lambda: torch.add(xs, 1.0, out=ys), 16)
+    st_ms = min(cuda_ms(lambda: stream_add_cuda(xs, out=ys), 16) for _ in range(2))
+    lib1 = cuda_ms(lambda: torch.add(xs, 1.0, out=ys), 16)
+    p1 = cuda_ms(lambda: stream_add_plain(xs, out=ys), 16)
+    st_bytes = 8 * n_stream
+    bound, by = bound_of(st_bytes, n_stream)
+    k_stream.update(ms=st_ms, plain_ms=min(p0, p1), bound_ms=bound, bound_by=by,
+                    library_ms=min(lib0, lib1))
+    log(f"  stream_add 1 GiB: {st_ms:.4f} ms/call = {st_bytes / st_ms / 1e9:.1f} GB/s; "
+        f"torch.add(x, 1.0, out=y) {lib0:.4f} {lib1:.4f} ms = "
+        f"{st_bytes / min(lib0, lib1) / 1e9:.1f} GB/s; plain {p0:.4f} {p1:.4f} ms; "
+        f"bound {bound:.4f} ms ({by}) ({smi})")
+    del xs, ys
+    torch.cuda.empty_cache()
+    phase_line("15 times", "probes timed beside their yardsticks", t0)
+
+    # ---- (c) the roofline at full width: the kernels' main path ------------
+    t0 = time.perf_counter()
+    for rec in (k_fma, k_stream):
+        rec["wrapper"].launches = 0
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = roofline.main([])
+    lines = buf.getvalue().strip().splitlines()
+    k_fma["launches"], k_stream["launches"] = (fma_chain_cuda.launches,
+                                               stream_add_cuda.launches)
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"roofline.main: rc {rc}, {len(lines)} lines")
+    log(f"  roofline: {lines[0]}")
+    out = json.loads(lines[0])
+    want = {"pair_planes_per_bin": 875, "pairs_per_step": 2_422_784_000,
+            "kernel_flops_per_step": 43_610_112_000, "platform": "gpu",
+            "grid": {"rows": 1664, "cols": 1664, "capacity": 14, "mean_occupancy": 7.57}}
+    for key, value in want.items():
+        if out[key] != value:
+            raise AssertionError(f"roofline {key}: {out[key]!r}, expected {value!r}")
+    for key in ("vpu_f32_peak_tflops", "hbm_stream_gbps", "force_move_s", "step_s",
+                "kernel_tflops", "pair_interactions_per_sec"):
+        if not (np.isfinite(out[key]) and out[key] > 0):
+            raise AssertionError(f"roofline {key}: {out[key]!r}")
+    if out["device_kind"] != torch.cuda.get_device_name(0) or not out["power_limit"]:
+        raise AssertionError(f"roofline device {out['device_kind']!r}, power limit "
+                             f"{out['power_limit']!r}")
+    # one untimed run and 5 timed ones of each probe's chained calls
+    expect = (6 * calls_fma, 6 * calls_stream)
+    if (k_fma["launches"], k_stream["launches"]) != expect:
+        raise AssertionError(f"launches {k_fma['launches']}, {k_stream['launches']}; "
+                             f"expected {expect}")
+    log(f"  launches: fma_chain {k_fma['launches']} (6 runs x {calls_fma}), stream_add "
+        f"{k_stream['launches']} (6 runs x {calls_stream}); probes: "
+        f"{out['vpu_f32_peak_tflops']} TFLOP/s ({out['vpu_f32_peak_tflops'] / 67:.4f} of "
+        f"67), {out['hbm_stream_gbps']} GB/s ({out['hbm_stream_gbps'] / 3350:.4f} of 3350) "
+        f"({smi})")
+    phase_line("15c", "roofline at full width", t0)
+    phase_line("15", "roofline probes clean", t15)
+
+
 def main() -> int:
     import torch
 
@@ -1989,6 +2193,7 @@ def main() -> int:
     )
     from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda
     from ppsim_tpu_torch.ops.cuda_rebin3 import rebin3_inplane_cuda, rebin3_ypass_cuda
+    from ppsim_tpu_torch.ops.cuda_roofline import fma_chain_cuda, stream_add_cuda
     from ppsim_tpu_torch.testing import (
         REBIN_EDGE_GEOMETRY, STRESS_GEOMETRY, rebin_edge_slab, stress_slab,
     )
@@ -2050,6 +2255,12 @@ def main() -> int:
                                           "pallas_rebin3.py:272", rebin3_inplane_cuda),
         "rebin3_ypass_repulsive": entry("rebin3_ypass_repulsive", "rebin3.cu",
                                         "pallas_rebin3.py:284", rebin3_ypass_cuda),
+        # phase 15: the roofline probes of bench/mfu.py (the kernel bodies
+        # inside vpu_peak_flops and hbm_stream_bw)
+        "fma_chain": dict(entry("fma_chain", "roofline.cu", "", fma_chain_cuda),
+                          replaces="bench/mfu.py:61"),
+        "stream_add": dict(entry("stream_add", "roofline.cu", "", stream_add_cuda),
+                           replaces="bench/mfu.py:109"),
     }
 
     # ---- phase 0: the card and the build ---------------------------------
@@ -2227,6 +2438,8 @@ def main() -> int:
     del state, state3, ref3, ref6, ref9
     torch.cuda.empty_cache()
     phase_repack(kernels, smi)
+    torch.cuda.empty_cache()
+    phase_roofline(kernels, smi)
 
     out = [{k: v for k, v in rec.items() if k != "wrapper"}
            for rec in kernels.values()]

@@ -132,7 +132,7 @@ def kernels() -> ctypes.CDLL:
 
     path = build_shared("ppsim_kernels", sources + headers, command)
     lib = ctypes.CDLL(path)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     for fn, types in (
             (lib.ppsim_grid_step, [P] * 17 + [I] * 12 + [F] * 10 + [P]),
             (lib.ppsim_grid_force, [P] * 4 + [I] * 10 + [F] * 8 + [P]),
@@ -141,7 +141,9 @@ def kernels() -> ctypes.CDLL:
             (lib.ppsim_rebin_shuffle, [P] * 24 + [I] * 13 + [F] * 2 + [P]),
             (lib.ppsim_grid3_step, [P] * 19 + [I] * 15 + [F] * 12 + [P]),
             (lib.ppsim_rebin3_inplane, [P] * 15 + [I] * 15 + [F] * 5 + [P]),
-            (lib.ppsim_rebin3_ypass, [P] * 32 + [I] * 10 + [F] * 4 + [P])):
+            (lib.ppsim_rebin3_ypass, [P] * 32 + [I] * 10 + [F] * 4 + [P]),
+            (lib.ppsim_fma_chain, [P, P, L, I, I, I, P]),
+            (lib.ppsim_stream_add, [P, P, L, I, P])):
         fn.argtypes = types
         fn.restype = I
     lib.ppsim_error_string.argtypes = [I]

@@ -163,7 +163,8 @@ def test_package_never_imports_jax():
         "import ppsim_tpu_torch.ops.grid3d_ops, ppsim_tpu_torch.ops.cuda_grid3\n"
         "import ppsim_tpu_torch.ops.cuda_rebin3, ppsim_tpu_torch.engines.grid3d\n"
         "import ppsim_tpu_torch.testing, ppsim_tpu_torch.initlib, ppsim_tpu_torch.io\n"
-        "import ppsim_tpu_torch.profiling\n"
+        "import ppsim_tpu_torch.profiling, ppsim_tpu_torch.roofline\n"
+        "import ppsim_tpu_torch.ops.cuda_roofline\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ppsim_tpu' or m.startswith('ppsim_tpu.')]\n"
         "assert all(sys.modules[m] is None for m in bad), bad\n"

@@ -1,6 +1,6 @@
 """The kernel wrappers of ppsim_tpu_torch (K1 fused step, K2 fused rebin, K3
-3D fused step, K4 + K5 3D rebin, K6 force-only, K7 + K8 dirs9 rebin) and their
-build. This file imports no JAX, so it also runs on a GPU host without it:
+3D fused step, K4 + K5 3D rebin, K6 force-only, K7 + K8 dirs9 rebin, the
+roofline probes fma_chain and stream_add) and their build. This file imports no JAX, so it also runs on a GPU host without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
@@ -31,6 +31,9 @@ from ppsim_tpu_torch.ops.cuda_rebin import (
     rebin_axes_call_cuda, rebin_axes_call_plain, rebin_counts_cuda, rebin_counts_plain,
     rebin_plan, rebin_shuffle_cuda, rebin_shuffle_plain, shuffle_plan,
 )
+from ppsim_tpu_torch.ops.cuda_roofline import (
+    fma_chain_cuda, fma_chain_plain, stream_add_cuda, stream_add_plain,
+)
 from ppsim_tpu_torch.ops.cuda_rebin3 import (
     rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_plan, rebin3_ypass_cuda,
     rebin3_ypass_plain,
@@ -46,6 +49,12 @@ from ppsim_tpu_torch.testing import (
 # slabs) cancel: its absolute tolerance is 1e-6 of the largest |a|.
 RTOL, ATOL = 1e-5, 1e-6
 ACC_ATOL = 1e-6
+# fma_chain against its twin: the kernel's FFMA rounds once where the twin
+# rounds the product and the sum apart, up to half an ulp (2^-24 relative)
+# a step; b >= 1 carries each step's error forward unchanged, so 16 steps on
+# inputs in [0.5, 1) stay within 16 * 2^-24 ~ 1e-6, and all terms are
+# positive (the sum over chains cancels nothing).
+FMA_RTOL = 1e-5
 TINY = SimConfig(num_parts=200, grid_bin_scale=3.0, grid_capacity=6,
                  evac_capacity=2, rebin_every=4)
 # n = 262,144: 229 x 229 bins padded to 232 x 256, capacity 11.
@@ -562,3 +571,32 @@ def test_fused_rebin_kernels_bitwise_on_edge_slabs_on_card(cuda, dim, case):
     for a, b in zip(slab, keep):
         assert torch.equal(a, b)
     assert int((out.pid != slab.pid).sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 2, 4, 8])
+def test_fma_chain_kernel_matches_twin_on_card(cuda, chains):
+    """fma_chain on a seeded input in [0.5, 1) at 16 steps, finite and
+    within FMA_RTOL of its twin; one launch."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.uniform(0.5, 1.0, (1000, 37)).astype(np.float32)).to(cuda)
+    before = fma_chain_cuda.launches
+    got = fma_chain_cuda(x, 16, chains)
+    assert fma_chain_cuda.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert torch.allclose(got, fma_chain_plain(x, 16, chains), rtol=FMA_RTOL, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 4099, 1 << 20])
+def test_stream_add_kernel_bitwise_on_card(cuda, n):
+    """stream_add equals x + 1 bitwise, on lengths that are not a multiple
+    of 4 too; a base pointer off 16 bytes is refused."""
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(n).astype(np.float32))
+    x = x.to(cuda)
+    out = torch.empty_like(x)
+    assert stream_add_cuda(x, out=out) is out
+    assert torch.equal(out, stream_add_plain(x))
+    if n > 1:
+        with pytest.raises(ValueError, match="16-byte"):
+            stream_add_cuda(x[1:])
