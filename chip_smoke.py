@@ -2122,9 +2122,9 @@ def phase_roofline(kernels, smi: str) -> None:
     bound, by = bound_of(st_bytes, n_stream)
     k_stream.update(ms=st_ms, plain_ms=min(p0, p1), bound_ms=bound, bound_by=by,
                     library_ms=min(lib0, lib1))
-    log(f"  stream_add 1 GiB: {st_ms:.4f} ms/call = {st_bytes / st_ms / 1e9:.1f} GB/s; "
+    log(f"  stream_add 1 GiB: {st_ms:.4f} ms/call = {st_bytes / st_ms / 1e6:.1f} GB/s; "
         f"torch.add(x, 1.0, out=y) {lib0:.4f} {lib1:.4f} ms = "
-        f"{st_bytes / min(lib0, lib1) / 1e9:.1f} GB/s; plain {p0:.4f} {p1:.4f} ms; "
+        f"{st_bytes / min(lib0, lib1) / 1e6:.1f} GB/s; plain {p0:.4f} {p1:.4f} ms; "
         f"bound {bound:.4f} ms ({by}) ({smi})")
     del xs, ys
     torch.cuda.empty_cache()
