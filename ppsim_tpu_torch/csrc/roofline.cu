@@ -26,21 +26,19 @@
 // on a finite value, so the timing holds.
 //
 // stream_add: y = x + 1 (a stream copy: each element read once and written
-// once). Bound by bytes: 8 bytes an element. Design: 16-byte float4 loads
-// and stores over a grid-stride loop at full occupancy, each thread loading
-// kStreamLoads float4s (stride s apart, so each load is coalesced across
-// the warp) before it adds and stores them: enough bytes in flight to cover
-// the device memory's latency under load (one float4 a thread read 6% below
-// torch.add), then single float4s for the rest and a scalar tail for the
-// last n mod 4 elements. Both pointers must be 16-byte aligned (the wrapper
-// checks).
+// once). Bound by bytes: 8 bytes an element. Design: one 16-byte float4
+// load and store a thread, one thread per float4, in a one-shot grid of
+// blocks that each move 4 KB and retire (the first threads of the grid
+// also take the last n mod 4 elements). On the H100 a persistent grid (8
+// blocks an SM striding through the whole array) read 6% below torch.add,
+// and four loads in flight a thread did not close that gap. Both pointers
+// must be 16-byte aligned (the wrapper checks).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kStreamLoads = 4;
 
 template <int CHAINS>
 __global__ void __launch_bounds__(kThreads)
@@ -74,28 +72,17 @@ __device__ __forceinline__ float4 add_one(float4 v) {
 __global__ void __launch_bounds__(kThreads)
 stream_add_kernel(const float* __restrict__ x, float* __restrict__ y,
                   long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n4 = n / 4;
-  const float4* __restrict__ x4 = reinterpret_cast<const float4*>(x);
-  float4* __restrict__ y4 = reinterpret_cast<float4*>(y);
-  long long i = first;
-  for (; i + (kStreamLoads - 1) * stride < n4; i += kStreamLoads * stride) {
-    float4 v[kStreamLoads];
-#pragma unroll
-    for (int u = 0; u < kStreamLoads; ++u) v[u] = x4[i + u * stride];
-#pragma unroll
-    for (int u = 0; u < kStreamLoads; ++u) y4[i + u * stride] = add_one(v[u]);
-  }
-  for (; i < n4; i += stride) y4[i] = add_one(x4[i]);
-  for (i = 4 * n4 + first; i < n; i += stride)
-    y[i] = __fadd_rn(x[i], 1.0f);
+  if (i < n4)
+    reinterpret_cast<float4*>(y)[i] = add_one(reinterpret_cast<const float4*>(x)[i]);
+  if (i < n - 4 * n4) y[4 * n4 + i] = __fadd_rn(x[4 * n4 + i], 1.0f);
 }
 
-// Blocks of kThreads for n elements (of `per` each a thread): as many as
-// fill every SM at the kernel's occupancy, and no more than the work needs.
+// Blocks of kThreads for n elements, one a thread: as many as fill every
+// SM at the kernel's occupancy, and no more than the work needs.
 template <typename K>
-cudaError_t full_grid(K kernel, int device, long long n, int per, int* blocks) {
+cudaError_t full_grid(K kernel, int device, long long n, int* blocks) {
   int sms = 0, per_sm = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -103,7 +90,7 @@ cudaError_t full_grid(K kernel, int device, long long n, int per, int* blocks) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, 0);
   if (err != cudaSuccess) return err;
-  const long long need = (n + (long long)per * kThreads - 1) / ((long long)per * kThreads);
+  const long long need = (n + kThreads - 1) / kThreads;
   const long long full = (long long)sms * (per_sm > 0 ? per_sm : 1);
   *blocks = (int)(need < full ? (need > 0 ? need : 1) : full);
   return cudaSuccess;
@@ -114,7 +101,7 @@ int launch_fma_chain(const float* x, float* y, long long n, int iters,
                      int device, cudaStream_t stream) {
   int blocks = 0;
   const cudaError_t err =
-      full_grid(fma_chain_kernel<CHAINS>, device, n, 1, &blocks);
+      full_grid(fma_chain_kernel<CHAINS>, device, n, &blocks);
   if (err != cudaSuccess) return (int)err;
   fma_chain_kernel<CHAINS><<<blocks, kThreads, 0, stream>>>(x, y, n, iters);
   return (int)cudaGetLastError();
@@ -151,10 +138,10 @@ int ppsim_stream_add(const float* x, float* y, long long n, int device,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return (int)cudaSuccess;
-  int blocks = 0;
-  err = full_grid(stream_add_kernel, device, n, 4 * kStreamLoads, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  stream_add_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, y, n);
+  const long long blocks = (n / 4 + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  stream_add_kernel<<<(unsigned)(blocks > 0 ? blocks : 1), kThreads, 0,
+                      (cudaStream_t)stream>>>(x, y, n);
   return (int)cudaGetLastError();
 }
 
