@@ -257,11 +257,16 @@ def phase_line(name: str, result: str, t0: float) -> None:
     log(f"[phase {name}] {result} ({time.perf_counter() - t0:.3f} s)")
 
 
-def nvidia_smi_line() -> str:
+def smi_query(fields: str) -> str:
+    """One ``nvidia-smi --query-gpu`` reading of the first card."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def nvidia_smi_line() -> str:
+    return smi_query("name,power.limit")
 
 
 def max_abs_diff(a, b) -> float:
@@ -1990,14 +1995,6 @@ def phase_repack(kernels, smi: str) -> None:
     torch.cuda.empty_cache()
     phase_line("14d", "K3, K4, K5 agree with their plain twins on arm (b)'s final slab", t0)
     phase_line("14", "3D repulsive config: three arms clean", t14)
-
-
-def smi_query(fields: str) -> str:
-    """One ``nvidia-smi --query-gpu`` reading of the first card."""
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def ffma_counts() -> dict:

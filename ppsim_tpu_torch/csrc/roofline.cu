@@ -29,10 +29,10 @@
 // once). Bound by bytes: 8 bytes an element. Design: one 16-byte float4
 // load and store a thread, one thread per float4, in a one-shot grid of
 // blocks that each move 4 KB and retire (the first threads of the grid
-// also take the last n mod 4 elements). On the H100 a persistent grid (8
-// blocks an SM striding through the whole array) read 6% below torch.add,
-// and four loads in flight a thread did not close that gap. Both pointers
-// must be 16-byte aligned (the wrapper checks).
+// also take the last n mod 4 elements): on the H100 a persistent grid (8
+// blocks an SM striding through the whole array) read 6% slower, with one
+// or four loads in flight a thread. Both pointers must be 16-byte aligned
+// (the wrapper checks).
 
 #include <cuda_runtime.h>
 
@@ -64,46 +64,36 @@ fma_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 }
 
-__device__ __forceinline__ float4 add_one(float4 v) {
-  return make_float4(__fadd_rn(v.x, 1.0f), __fadd_rn(v.y, 1.0f),
-                     __fadd_rn(v.z, 1.0f), __fadd_rn(v.w, 1.0f));
-}
-
 __global__ void __launch_bounds__(kThreads)
 stream_add_kernel(const float* __restrict__ x, float* __restrict__ y,
                   long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n4 = n / 4;
-  if (i < n4)
-    reinterpret_cast<float4*>(y)[i] = add_one(reinterpret_cast<const float4*>(x)[i]);
+  if (i < n4) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    reinterpret_cast<float4*>(y)[i] =
+        make_float4(__fadd_rn(v.x, 1.0f), __fadd_rn(v.y, 1.0f),
+                    __fadd_rn(v.z, 1.0f), __fadd_rn(v.w, 1.0f));
+  }
   if (i < n - 4 * n4) y[4 * n4 + i] = __fadd_rn(x[4 * n4 + i], 1.0f);
 }
 
-// Blocks of kThreads for n elements, one a thread: as many as fill every
-// SM at the kernel's occupancy, and no more than the work needs.
-template <typename K>
-cudaError_t full_grid(K kernel, int device, long long n, int* blocks) {
-  int sms = 0, per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
-  if (err != cudaSuccess) return err;
-  const long long need = (n + kThreads - 1) / kThreads;
-  const long long full = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  *blocks = (int)(need < full ? (need > 0 ? need : 1) : full);
-  return cudaSuccess;
-}
-
+// One thread an element, in as many blocks as fill every SM at the kernel's
+// occupancy (and no more than the elements need).
 template <int CHAINS>
 int launch_fma_chain(const float* x, float* y, long long n, int iters,
                      int device, cudaStream_t stream) {
-  int blocks = 0;
-  const cudaError_t err =
-      full_grid(fma_chain_kernel<CHAINS>, device, n, &blocks);
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  fma_chain_kernel<CHAINS><<<blocks, kThreads, 0, stream>>>(x, y, n, iters);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fma_chain_kernel<CHAINS>, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = (n + kThreads - 1) / kThreads;
+  const long long full = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  fma_chain_kernel<CHAINS><<<(unsigned)(need < full ? need : full), kThreads,
+                             0, stream>>>(x, y, n, iters);
   return (int)cudaGetLastError();
 }
 
