@@ -142,7 +142,23 @@ Phases, each printing its result and seconds on its own line:
    probe), and the SM clocks before and after the FMA runs; (c)
    ``roofline.main([])`` at full width (both probes at mfu.py's defaults,
    the step numbers at n = 20,971,520): its JSON line, the static step
-   counts, and launches 48 x 6 and 16 x 6.
+   counts, and launches 48 x 6 and 16 x 6;
+16. saved runs at full width under the frame budget (``Engine.run``'s
+   ``max_device_frame_bytes``, 2 GiB: frames past it stream to pinned host
+   memory on a copy stream), each gate through ``harness.main`` in this
+   process beside the same command unsaved, with stdout captured and the
+   peak device memory bracketed: (a) the main path's gate ``--engine cuda
+   -n 20971520 -s 42 --savefreq 100 --check`` (10 frames, 1.68 GB, kept on
+   the card) and (b) the stretch config's (``--ndim 3 --density 7e-6
+   --force-law lj --dt 1e-4``, 10 frames, 2.52 GB, streamed) must print the
+   summary line and ``Correctness check: PASS``; each prints its time
+   beside phase 3's or 6's and its peak beside the unsaved run's, the
+   frames' route (counted at ``FrameSink.add``) and the kernels' launches;
+   (b)'s peak must stay within three frames of its unsaved run's; (c) the
+   main path's engine for 200 steps saved every 10 (20 frames, 3.36 GB) in
+   ``harness.timed_run_repeats`` with the default budget (streamed) and
+   with 1 << 40 (kept): frames and final state bitwise equal, each run's
+   times and peak.
 
 The line before the last is a JSON object with each kernel's launches in its
 full-width run (phase 3 for K1 and K2, phase 6 for K3-K5, phase 9 for K6-K8,
@@ -244,6 +260,9 @@ FMA_RTOL = 1e-5
 FMA_CHECK_ITERS = 16
 STREAM_RAGGED = 1_000_003  # a length that is not a multiple of 4
 SGEMM_N = 8192  # cuBLAS SGEMM yardstick for the FMA probe, TF32 off
+# Phase 16c: the main path's engine saving 20 frames (3.36 GB, past the
+# 2 GiB frame budget), streamed and kept on the card.
+STEPS_SAVED, SAVEFREQ_SAVED = 200, 10
 # Peak rates of one NVIDIA H100 SXM at 700 W (HBM3 bandwidth, dense FP32).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -2168,6 +2187,162 @@ def phase_roofline(kernels, smi: str) -> None:
     phase_line("15", "roofline probes clean", t15)
 
 
+def cli_in_process(label: str, argv):
+    """``ppsim_tpu_torch.harness.main(argv)`` in this process, its standard
+    output captured and logged: the run's ``Simulation Time``, its peak
+    device memory above what was allocated before the call, and its output.
+    Raises unless it exits 0 and prints the summary line."""
+    import io
+    import re
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from ppsim_tpu_torch import harness
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = harness.main(argv)
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    out = buf.getvalue()
+    for line in out.strip().splitlines():
+        log(f"  cli ({label}): {line}")
+    found = re.search(r"^Simulation Time = (\S+) seconds for \d+ particles\.$", out,
+                      re.MULTILINE)
+    if rc != 0 or found is None:
+        raise RuntimeError(f"{label}: rc {rc}, summary line "
+                           f"{'found' if found else 'missing'}")
+    return float(found.group(1)), peak, out
+
+
+def phase_saved(kernels, sec3: float, sec6: float, smi: str) -> None:
+    """Phase 16: saved runs at full width under the frame budget
+    (``Engine.run``'s ``max_device_frame_bytes``, 2 GiB). (a) The main
+    path's gate ``--engine cuda -n 20971520 -s 42 --savefreq 100 --check``
+    (10 frames, 1.68 GB: kept on the card) and (b) the stretch config's
+    (10 frames, 2.52 GB: streamed), each through the CLI's ``main`` in this
+    process beside the same command unsaved: a checker PASS, the frames'
+    route, the peak device memory of both; (b)'s peak within three frames
+    of its unsaved run's. (c) The main path's engine for 200 steps saved
+    every 10 (20 frames, 3.36 GB) streamed and kept on the card: frames and
+    final state bitwise equal, times and peaks."""
+    import numpy as np
+    import torch
+
+    from ppsim_tpu_torch.config import SimConfig
+    from ppsim_tpu_torch.engines import get_engine
+    from ppsim_tpu_torch.engines.base import MAX_DEVICE_FRAME_BYTES, FrameSink
+    from ppsim_tpu_torch.harness import timed_run_repeats
+    from ppsim_tpu_torch.initlib import init_particles
+
+    dev = torch.device("cuda", 0)
+    t16 = time.perf_counter()
+    # frames each sink route takes (a wrapper over FrameSink.add that keeps
+    # no reference to the sink or the frame)
+    routes = {False: 0, True: 0}
+    add = FrameSink.add
+
+    def counted_add(sink, frame):
+        routes[sink.streams] += 1
+        add(sink, frame)
+
+    FrameSink.add = counted_add
+    try:
+        gates = (
+            ("16a", "main path", ["--engine", "cuda", "-n", str(N_MAIN), "-s", str(SEED)],
+             ("grid_step", "rebin_axes"), 2, sec3, "phase 3", False),
+            ("16b", "stretch config",
+             ["--ndim", "3", "--density", "7e-6", "--force-law", "lj", "--dt", "1e-4",
+              "-n", str(N_MAIN), "-s", str(SEED)],
+             ("grid3_step", "rebin3_inplane", "rebin3_ypass"), 3, sec6, "phase 6", True),
+        )
+        for tag, label, argv, path, ndim, ref_s, ref_name, streams in gates:
+            t0 = time.perf_counter()
+            frame_b = N_MAIN * ndim * 4
+            wrappers = [kernels[k]["wrapper"] for k in path]
+            for w in wrappers:
+                w.launches = 0
+            routes.update({False: 0, True: 0})
+            s_un, peak_un, _ = cli_in_process(f"{label}, unsaved", argv)
+            s_sv, peak_sv, out = cli_in_process(f"{label} gate",
+                                                argv + ["--savefreq", "100", "--check"])
+            launches = {k: w.launches for k, w in zip(path, wrappers)}
+            if "Correctness check: PASS" not in out:
+                raise AssertionError(f"{tag}: the {label} gate did not PASS")
+            if min(launches.values()) == 0:
+                raise AssertionError(f"{tag}: a kernel of the path never launched: "
+                                     f"{launches}")
+            took, other = routes[streams], routes[not streams]
+            if took < 10 or other:
+                raise AssertionError(f"{tag}: frames streamed {routes[True]}, kept "
+                                     f"{routes[False]}; expected only "
+                                     f"{'streamed' if streams else 'kept'}")
+            log(f"  {label} gate, 10 frames of {frame_b} bytes "
+                f"({'streamed' if streams else 'kept on the card'}; frames taken, "
+                f"warm-up included: {took}): Simulation Time {s_sv:g} s, unsaved "
+                f"{s_un:g} s, {ref_name} {ref_s:.4f} s; peak device memory "
+                f"{peak_sv} bytes, unsaved {peak_un} bytes, "
+                f"saved - unsaved {peak_sv - peak_un} bytes = "
+                f"{(peak_sv - peak_un) / frame_b:.3f} frames; launches {launches} ({smi})")
+            if streams and peak_sv - peak_un > 3 * frame_b:
+                raise AssertionError(f"{tag}: the streamed run's peak exceeds the "
+                                     f"unsaved run's by more than three frames")
+            phase_line(tag, f"{label} --savefreq 100 --check PASS at full width", t0)
+    finally:
+        FrameSink.add = add
+
+    # ---- (c) streamed against kept frames on the main path's engine ---------
+    t0 = time.perf_counter()
+    cfg = SimConfig(num_parts=N_MAIN, rebin_every=CADENCE_MAIN)
+    state = init_particles(cfg, seed=SEED, method="reference", device=dev)
+    frame_b = N_MAIN * 2 * 4
+    wrappers = [kernels[k]["wrapper"] for k in ("grid_step", "rebin_axes")]
+    for w in wrappers:
+        w.launches = 0
+    runs = {}
+    for arm, budget in (("streamed", MAX_DEVICE_FRAME_BYTES), ("kept", 1 << 40)):
+        engine = get_engine("cuda", cfg, device=dev)
+        sink = engine.frame_sink(STEPS_SAVED, SAVEFREQ_SAVED,
+                                 max_device_frame_bytes=budget)
+        if sink.streams != (arm == "streamed") or sink.count != 20:
+            raise AssertionError(f"16c {arm}: sink streams {sink.streams}, "
+                                 f"{sink.count} frames")
+        del sink
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        result, times = timed_run_repeats(engine, state, STEPS_SAVED, SAVEFREQ_SAVED,
+                                          repeats=2, max_device_frame_bytes=budget)
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        engine.check(result)
+        if result.frames.shape != (20, N_MAIN, 2) or not np.isfinite(result.frames).all():
+            raise AssertionError(f"16c {arm}: frames {result.frames.shape}, not all finite")
+        runs[arm] = (result.frames, result.state.pos.cpu(), result.state.vel.cpu(),
+                     times, peak)
+        del result, engine
+    launches = [w.launches for w in wrappers]
+    if min(launches) == 0:
+        raise AssertionError(f"16c: K1, K2 launches {launches}")
+    (fs, ps, vs, ts, peak_s), (fk, pk, vk, tk, peak_k) = runs["streamed"], runs["kept"]
+    if not (np.array_equal(fs, fk) and torch.equal(ps, pk) and torch.equal(vs, vk)):
+        raise AssertionError("16c: streamed and kept frames or final states differ")
+    log(f"  main path n={N_MAIN} steps={STEPS_SAVED} savefreq={SAVEFREQ_SAVED} "
+        f"rebin_every={CADENCE_MAIN}, 20 frames of {frame_b} bytes: streamed "
+        f"{ts[0]:.4f} {ts[1]:.4f} s, kept on the card {tk[0]:.4f} {tk[1]:.4f} s, "
+        f"streamed / kept {min(ts) / min(tk):.4f}; peak device memory streamed "
+        f"{peak_s} bytes, kept {peak_k} bytes, kept - streamed {peak_k - peak_s} "
+        f"bytes = {(peak_k - peak_s) / frame_b:.3f} frames; launches K1, K2 "
+        f"{launches}; frames and final state bitwise equal ({smi})")
+    phase_line("16c", "streamed frames equal kept frames", t0)
+    phase_line("16", "saved runs at full width clean", t16)
+
+
 def main() -> int:
     import torch
 
@@ -2432,11 +2607,14 @@ def main() -> int:
     phase_tile(kernels, state, cfg, ref3, ref9, smi)
     torch.cuda.empty_cache()
     phase_particle(state, ref3, state3, smi)
+    sec6 = ref6[1]
     del state, state3, ref3, ref6, ref9
     torch.cuda.empty_cache()
     phase_repack(kernels, smi)
     torch.cuda.empty_cache()
     phase_roofline(kernels, smi)
+    torch.cuda.empty_cache()
+    phase_saved(kernels, seconds, sec6, smi)
 
     out = [{k: v for k, v in rec.items() if k != "wrapper"}
            for rec in kernels.values()]

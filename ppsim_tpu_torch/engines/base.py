@@ -4,8 +4,12 @@ The reference's driver owns the step loop and the save cadence
 (part1/main.cpp:124-139): per step it calls ``simulate_one_step`` and saves
 when ``step % savefreq == 0``, so the first frame is the state after one
 step. The JAX package compiles that loop into ``lax.scan``s; here it is a
-Python loop over device-resident state. Monitors and frames stay device
-tensors until the run ends: nothing inside the loop waits for the device.
+Python loop over device-resident state. Monitors stay device tensors until
+the run ends, and so do the saved frames while they fit the run's frame
+budget (``max_device_frame_bytes``, the JAX package's 2 GiB); past it each
+frame streams to host memory as it is taken (:class:`FrameSink`). Nothing
+inside the loop waits for the device, except a streamed run for the copy
+of the frame two frames back.
 """
 
 from __future__ import annotations
@@ -18,8 +22,16 @@ import torch
 from ppsim_tpu_torch.config import SimConfig
 from ppsim_tpu_torch.state import ParticleState
 
-__all__ = ["Monitors", "Carry", "RunResult", "Engine", "register_engine",
-           "get_engine", "engine_names", "resolve_device"]
+__all__ = ["Monitors", "Carry", "RunResult", "FrameSink", "Engine",
+           "MAX_DEVICE_FRAME_BYTES", "register_engine", "get_engine",
+           "engine_names", "resolve_device", "saved_frame_count"]
+
+#: The saved run's frame budget on the device (the JAX package's
+#: ``Engine.run`` default): past it the frames stream to host memory.
+MAX_DEVICE_FRAME_BYTES = 2 << 30
+#: Pinned host buffers a streamed run on the card cycles its copies through:
+#: at most this many taken frames wait on the device for their copy.
+FRAME_RING = 2
 
 
 def resolve_device(device) -> torch.device:
@@ -114,6 +126,105 @@ class RunResult(NamedTuple):
                 )
 
 
+def saved_frame_count(nsteps: int, savefreq: int, start: int = 0) -> int:
+    """Frames a run of global steps ``start + 1 .. start + nsteps`` saves at
+    the reference cadence (after steps ``i`` with ``(i - 1) % savefreq ==
+    0``; none for ``savefreq <= 0``)."""
+    if savefreq <= 0:
+        return 0
+    return max(0, (start + nsteps - 1) // savefreq - -(-start // savefreq) + 1)
+
+
+class FrameSink:
+    """The saved frames of one run, in the order taken; ``len`` counts them.
+
+    Kept (``streams`` false): each frame stays a device tensor until
+    :meth:`to_numpy` copies them one by one into one host array.
+
+    Streamed: each frame goes to host memory as it is taken, and its device
+    tensor is dropped. On the card an event recorded on the compute stream
+    after the frame orders a copy on a stream of the sink's own, with
+    ``non_blocking``, into the next of ``FRAME_RING`` pinned host buffers
+    (a non-blocking copy into pageable memory would be synchronous); the
+    host moves a buffer into the host array once the copy's own event has
+    fired, and only then reuses it. Until then the sink holds the frame's
+    device tensor: dropped earlier, the caching allocator would hand its
+    memory to a later step while the copy still reads it. On the CPU a
+    streamed frame is copied at once.
+
+    The host array is one (F, N, ndim) tensor, F the frames the run can
+    take (``count``), allocated at the first frame; :meth:`to_numpy`
+    returns the rows taken as numpy.
+    """
+
+    def __init__(self, count: int, streams: bool):
+        self.count = count
+        self.streams = streams
+        self._taken = 0
+        self._host: Optional[torch.Tensor] = None
+        self._kept: List[torch.Tensor] = []
+        # streamed on the card: [pinned buffer, (row, frame, copied) or None]
+        self._ring: List[list] = []
+        self._copy_stream = None
+
+    def __len__(self) -> int:
+        return self._taken
+
+    def add(self, frame: torch.Tensor) -> None:
+        """Take the next frame (an (N, ndim) tensor the caller no longer
+        writes)."""
+        row = self._taken
+        if self._host is None:
+            self._host = torch.empty((self.count, *frame.shape), dtype=frame.dtype)
+            if self.streams and frame.device.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(frame.device)
+                self._ring = [[torch.empty(frame.shape, dtype=frame.dtype,
+                                           pin_memory=True), None]
+                              for _ in range(FRAME_RING)]
+        self._taken += 1
+        if not self.streams:
+            self._kept.append(frame)
+        elif not self._ring:
+            self._host[row].copy_(frame)
+        else:
+            slot = self._ring[row % len(self._ring)]
+            self._land(slot)
+            taken = torch.cuda.Event()
+            taken.record(torch.cuda.current_stream(frame.device))
+            self._copy_stream.wait_event(taken)
+            with torch.cuda.stream(self._copy_stream):
+                slot[0].copy_(frame, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self._copy_stream)
+            slot[1] = (row, frame, copied)
+
+    def _land(self, slot) -> None:
+        """Wait for the slot's copy, move its buffer into the host array and
+        drop the frame's device tensor."""
+        if slot[1] is not None:
+            row, _, copied = slot[1]
+            copied.synchronize()
+            self._host[row].copy_(slot[0])
+            slot[1] = None
+
+    def flush(self) -> None:
+        """Land every streamed frame in host memory (waits for their
+        copies); kept frames stay on the device."""
+        for slot in self._ring:
+            self._land(slot)
+
+    def to_numpy(self) -> Optional[np.ndarray]:
+        """(F, N, ndim) frames on the host, or None if none were taken; kept
+        frames are copied there one by one and dropped from the device."""
+        if not self._taken:
+            return None
+        self.flush()
+        for row, frame in enumerate(self._kept):
+            self._host[row].copy_(frame)
+        self._kept.clear()
+        return self._host[:self._taken].numpy()
+
+
 class Engine:
     """Base engine: subclasses implement the carry transforms; the base owns
     the run loop and the save cadence."""
@@ -185,34 +296,54 @@ class Engine:
         return carry.monitors
 
     # ---- common driver -----------------------------------------------------
+    def frame_sink(self, nsteps: int, savefreq: int, start: int = 0,
+                   max_device_frame_bytes: int = MAX_DEVICE_FRAME_BYTES) -> FrameSink:
+        """The sink for the frames of ``run_steps(carry, nsteps, savefreq,
+        start)``. It streams them to host memory when the JAX package's
+        rule (``ppsim_tpu.engines.base.Engine.run``) finds the frame stack
+        over the budget: ``max(1, nsteps // savefreq)`` frames of
+        ``num_parts * ndim`` elements (the state's element size; the JAX
+        package's 4 bytes in float32) above ``max_device_frame_bytes``."""
+        cfg = self.config
+        frame_bytes = cfg.num_parts * cfg.ndim * cfg.torch_dtype.itemsize
+        streams = (savefreq > 0 and max(1, nsteps // savefreq) * frame_bytes
+                   > max_device_frame_bytes)
+        return FrameSink(saved_frame_count(nsteps, savefreq, start), streams)
+
     def run_steps(self, carry, nsteps: int, savefreq: int, start: int = 0,
-                  after_step=None):
+                  after_step=None,
+                  max_device_frame_bytes: int = MAX_DEVICE_FRAME_BYTES):
         """Global steps ``start + 1 .. start + nsteps`` with frames after
         steps 1, 1+savefreq, ... (the reference cadence,
         part1/main.cpp:127-137; savefreq <= 0 saves none).
         ``after_step(carry, i)``, if given, runs after step ``i`` and before
         its frame, and returns ``(carry, stop)``; ``stop`` ends the run
-        after step ``i``. Returns (carry, frames) with frames a list of
-        device tensors."""
-        frames: List[torch.Tensor] = []
+        after step ``i``. Returns (carry, frames), frames the run's
+        :class:`FrameSink` (:meth:`frame_sink` of the budget)."""
+        frames = self.frame_sink(nsteps, savefreq, start, max_device_frame_bytes)
         for i in range(start + 1, start + nsteps + 1):
             carry = self.step(carry, i)
             stop = False
             if after_step is not None:
                 carry, stop = after_step(carry, i)
             if savefreq > 0 and (i - 1) % savefreq == 0:
-                frames.append(self.frame_of(carry))
+                frames.add(self.frame_of(carry))
             if stop:
                 break
         return carry, frames
 
     def run(self, state: ParticleState, nsteps: Optional[int] = None,
-            savefreq: int = 0) -> RunResult:
+            savefreq: int = 0,
+            max_device_frame_bytes: int = MAX_DEVICE_FRAME_BYTES) -> RunResult:
         """Run ``nsteps`` (default config.nsteps) saving every ``savefreq``
-        steps (0 = never); returns once the device has finished."""
+        steps (0 = never); returns once the device has finished. Frames
+        past ``max_device_frame_bytes`` (:meth:`frame_sink`) stream to host
+        memory as the run goes, as the JAX package's chunked saved runs do;
+        within it they stay on the device until the run ends."""
         nsteps = self.config.nsteps if nsteps is None else nsteps
         carry = self.init_carry(state.to(self.device))
-        carry, frames = self.run_steps(carry, nsteps, savefreq)
+        carry, frames = self.run_steps(carry, nsteps, savefreq,
+                                       max_device_frame_bytes=max_device_frame_bytes)
         return self.result_of(carry, frames, self.final_state(carry))
 
     def step_state(self, state: ParticleState) -> ParticleState:
@@ -220,12 +351,11 @@ class Engine:
         rebin on it only at cadence 1)."""
         return self.final_state(self.step(self.init_carry(state.to(self.device)), 1))
 
-    def result_of(self, carry, frames, final: ParticleState) -> RunResult:
+    def result_of(self, carry, frames: FrameSink, final: ParticleState) -> RunResult:
         """The run's result with monitors and frames copied to the host
         (waits for the device)."""
         monitors = self.monitors_of(carry).to_host()
-        frames_np = torch.stack(frames).cpu().numpy() if frames else None
-        return RunResult(final, frames_np, monitors, carry)
+        return RunResult(final, frames.to_numpy(), monitors, carry)
 
 
 _REGISTRY: Dict[str, Type[Engine]] = {}

@@ -25,7 +25,9 @@ from typing import NamedTuple
 
 import torch
 
-from ppsim_tpu_torch.engines.base import Engine, Monitors, register_engine
+from ppsim_tpu_torch.engines.base import (
+    MAX_DEVICE_FRAME_BYTES, Engine, Monitors, register_engine,
+)
 from ppsim_tpu_torch.ops import grid_ops
 from ppsim_tpu_torch.ops.grid_ops import SlabGeometry, SlabState
 from ppsim_tpu_torch.state import ParticleState
@@ -148,12 +150,13 @@ class GridEngine(Engine):
         self.geom = dataclasses.replace(self.geom, capacity=new_cap)
         return True
 
-    def run(self, state: ParticleState, nsteps=None, savefreq: int = 0):
-        result = super().run(state, nsteps, savefreq)
+    def run(self, state: ParticleState, nsteps=None, savefreq: int = 0,
+            max_device_frame_bytes: int = MAX_DEVICE_FRAME_BYTES):
+        result = super().run(state, nsteps, savefreq, max_device_frame_bytes)
         for _try in range(self._DROP_RETRIES):
             if not self.maybe_escalate_after_drop(result):
                 break
-            result = super().run(state, nsteps, savefreq)
+            result = super().run(state, nsteps, savefreq, max_device_frame_bytes)
         return result
 
     # ---- protocol ----------------------------------------------------------

@@ -7,7 +7,9 @@ slab pack, or the sharded engine's strip split, the ``init_simulation``
 analog) and all steps, not particle initialization
 (part1/main.cpp:118-143). Kernel builds, a warm-up run and the host-to-device
 copy of the initial state happen before the timer starts; the timer stops
-after ``torch.cuda.synchronize()``.
+after ``torch.cuda.synchronize()``. Saved frames (``-o``, ``--check``) within
+the 2 GiB frame budget are copied to the host after the timer stops; past
+it they stream to host memory inside the timer (``timed_run_repeats``).
 
     python -m ppsim_tpu_torch -n 262144 -s 42 --steps 200 --engine cuda --check
     python -m ppsim_tpu_torch -n 20971520 -s 42 --engine cuda --grid-rebin-mode dirs9
@@ -45,6 +47,7 @@ import torch.distributed as dist
 
 from ppsim_tpu_torch.config import SimConfig
 from ppsim_tpu_torch.engines import engine_names, get_engine
+from ppsim_tpu_torch.engines.base import MAX_DEVICE_FRAME_BYTES
 from ppsim_tpu_torch.initlib import init_particles
 from ppsim_tpu_torch.io import (
     MetricsWriter, load_checkpoint, save_checkpoint, write_trajectory,
@@ -204,7 +207,8 @@ def discover_repack(engine, carry, nsteps: int, plan):
     return carry, attempts[-1], attempts, (switched[0] if switched else None)
 
 
-def run_switched(engine, carry, nsteps: int, savefreq: int, switch_at=None):
+def run_switched(engine, carry, nsteps: int, savefreq: int, switch_at=None,
+                 max_device_frame_bytes: int = MAX_DEVICE_FRAME_BYTES):
     """``engine.run_steps`` with the committing repack replayed after step
     ``switch_at`` (None: no repack), before that step's frame."""
     def replay(carry, i):
@@ -213,24 +217,36 @@ def run_switched(engine, carry, nsteps: int, savefreq: int, switch_at=None):
         return carry, False
 
     return engine.run_steps(carry, nsteps, savefreq,
-                            after_step=None if switch_at is None else replay)
+                            after_step=None if switch_at is None else replay,
+                            max_device_frame_bytes=max_device_frame_bytes)
 
 
 def timed_run_repeats(engine, state: ParticleState, nsteps: int, savefreq: int,
-                      repeats: int = 1):
+                      repeats: int = 1,
+                      max_device_frame_bytes: int = MAX_DEVICE_FRAME_BYTES):
     """Run ``repeats`` times under the reference timing contract: the pack
     (``init_carry``), all steps and the final gather inside the timer; the
     host-to-device copy of the initial state and a warm-up outside it.
-    Returns ``(RunResult, [seconds, ...])``; frames and monitors are copied
-    to the host after the last timer stops.
+    Returns ``(RunResult, [seconds, ...])`` of the last run.
+
+    Saved frames follow ``Engine.run``'s budget (``engine.frame_sink``), as
+    the JAX package's two saved drivers do. Within ``max_device_frame_bytes``
+    they stay on the device and are copied to the host after the timer
+    stops, as from the JAX package's one saved program. Past it they stream
+    to host memory as the run goes and all have landed there when the timer
+    stops, as in the JAX package's chunked saved driver and the reference's
+    ``-o`` runs (part1/main.cpp:132-137). Monitors are copied after the
+    timer.
 
     The warm-up builds the kernels and runs one rebin period (pack,
-    rebin_every - 1 plain steps, one step with rebin), so every kernel and
-    allocation the timed region uses has run once. With a capacity-phase
-    repack (``engine.repack_plan``, consulted after the first pack) the
-    discovery pass (:func:`discover_repack`) comes first, and the rebin
-    period follows it at the capacity it ended at; it records the steps it
-    attempted at and the one that committed in
+    rebin_every - 1 plain steps, one step with rebin) and, for a saved run,
+    takes one frame into a sink of the run's kind, so every kernel and
+    allocation the timed region uses has run once (the pinned buffers of a
+    streamed run then come from the host allocator's cache). With a
+    capacity-phase repack (``engine.repack_plan``, consulted after the
+    first pack) the discovery pass (:func:`discover_repack`) comes first,
+    and the rebin period follows it at the capacity it ended at; it records
+    the steps it attempted at and the one that committed in
     ``engine._last_repack_attempts`` and ``engine._last_repack_switch``
     (runs are deterministic). The timed runs replay the committing attempt
     alone, its wait for the overflow included."""
@@ -243,15 +259,23 @@ def timed_run_repeats(engine, state: ParticleState, nsteps: int, savefreq: int,
         engine._last_repack_attempts, engine._last_repack_switch = attempts, switch_at
     carry, _ = engine.run_steps(carry, engine.rebin_every, 0, start=done)
     engine.final_state(carry)
+    if savefreq > 0:
+        warm = engine.frame_sink(nsteps, savefreq,
+                                 max_device_frame_bytes=max_device_frame_bytes)
+        warm.add(engine.frame_of(carry))
+        warm.to_numpy()
+        del warm
     _sync(engine.device)
     del carry
     times = []
     for _ in range(max(1, repeats)):
+        carry = frames = None  # the last run's slab and frames go first
         _sync(engine.device)
         t0 = time.perf_counter()
         carry, frames = run_switched(engine, engine.init_carry(state), nsteps,
-                                     savefreq, switch_at)
+                                     savefreq, switch_at, max_device_frame_bytes)
         final = engine.final_state(carry)
+        frames.flush()
         _sync(engine.device)
         times.append(time.perf_counter() - t0)
     return engine.result_of(carry, frames, final), times
@@ -377,7 +401,8 @@ def main(argv=None) -> int:
             "savefreq": effective_savefreq,
             "seconds": seconds,
             "particle_steps_per_sec": args.n * nsteps / seconds,
-            "timing_contract": "includes init_carry (slab pack) + steps + final gather; "
+            "timing_contract": "includes init_carry (slab pack) + steps + final gather "
+                               "+ frames streamed past the 2 GiB frame budget; "
                                "excludes kernel build, warm-up, particle init "
                                "and the host-to-device copy",
             "max_bin_count": int(result.monitors.max_bin_count),

@@ -132,7 +132,7 @@ def test_drop_detected_capacity_escalation(monkeypatch):
         m = Monitors(z, z + dropped, torch.zeros(()), z)
         return RunResult(None, None, m)
 
-    def fake_run(self, state, nsteps=None, savefreq=0):
+    def fake_run(self, state, nsteps=None, savefreq=0, max_device_frame_bytes=None):
         calls.append(self.geom.capacity)
         return result(0 if self.geom.capacity >= calls[0] + 2 else 3)
 
