@@ -186,9 +186,8 @@ class GridEngine(Engine):
         return self.step_plain(carry)
 
     def frame_of(self, carry: GridCarry) -> torch.Tensor:
-        pos, _ = grid_ops.slab_to_particles(carry.slab, self.geom,
-                                            self.config.num_parts)
-        return pos
+        return grid_ops.slab_positions(carry.slab, self.geom,
+                                       self.config.num_parts)
 
     def final_state(self, carry: GridCarry) -> ParticleState:
         pos, vel = grid_ops.slab_to_particles(carry.slab, self.geom,

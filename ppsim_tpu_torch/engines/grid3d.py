@@ -255,9 +255,8 @@ class Grid3DEngine(GridEngine):
 
     # ---- protocol ----------------------------------------------------------
     def frame_of(self, carry: GridCarry) -> torch.Tensor:
-        pos, _ = grid3d_ops.slab3_to_particles(carry.slab, self.geom,
-                                               self.config.num_parts)
-        return pos
+        return grid3d_ops.slab3_positions(carry.slab, self.geom,
+                                          self.config.num_parts)
 
     def final_state(self, carry: GridCarry) -> ParticleState:
         pos, vel = grid3d_ops.slab3_to_particles(carry.slab, self.geom,

@@ -182,9 +182,8 @@ class ShardedGridEngine(GridEngine):
                            for k in range(5)))
 
     def frame_of(self, carry: GridCarry) -> torch.Tensor:
-        pos, _ = grid_ops.slab_to_particles(self.full_slab(carry), self.geom,
-                                            self.config.num_parts)
-        return pos
+        return grid_ops.slab_positions(self.full_slab(carry), self.geom,
+                                       self.config.num_parts)
 
     def final_state(self, carry: GridCarry) -> ParticleState:
         pos, vel = grid_ops.slab_to_particles(self.full_slab(carry), self.geom,

@@ -172,9 +172,8 @@ class ShardedGrid3DEngine(Grid3DEngine):
                             for k in range(7)))
 
     def frame_of(self, carry: GridCarry) -> torch.Tensor:
-        pos, _ = grid3d_ops.slab3_to_particles(self.full_slab(carry), self.geom,
-                                               self.config.num_parts)
-        return pos
+        return grid3d_ops.slab3_positions(self.full_slab(carry), self.geom,
+                                          self.config.num_parts)
 
     def final_state(self, carry: GridCarry) -> ParticleState:
         pos, vel = grid3d_ops.slab3_to_particles(self.full_slab(carry), self.geom,

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ppsim_tpu_torch.ops.binning import BIG, sort_by_bin
-from ppsim_tpu_torch.ops.grid_ops import RebinMonitors, f32
+from ppsim_tpu_torch.ops.grid_ops import RebinMonitors, f32, id_rows
 
 __all__ = [
     "DIRS3",
@@ -33,6 +33,7 @@ __all__ = [
     "slab3_from_particles",
     "slab3_from_particles_spill",
     "slab3_to_particles",
+    "slab3_positions",
     "grid3_force_xla",
     "move3_planes",
     "grid3_move",
@@ -302,19 +303,17 @@ def _offsets(geom: Geometry3S, shape, device, y0=0):
     return x, y, z
 
 
+def slab3_positions(state: Slab3State, geom: Geometry3S, num_parts: int):
+    """Id-ordered (N, 3) global positions (a saved frame)."""
+    xo, yo, zo = _offsets(geom, state.xl.shape, state.xl.device)
+    return id_rows((state.xl + xo, state.yl + yo, state.zl + zo), state.pid,
+                   num_parts)
+
+
 def slab3_to_particles(state: Slab3State, geom: Geometry3S, num_parts: int):
     """Scatter slab state back to id-ordered (N, 3) pos/vel."""
-    dev = state.xl.device
-    xo, yo, zo = _offsets(geom, state.xl.shape, dev)
-    alive = state.pid.reshape(-1) >= 0
-    idx = state.pid.reshape(-1)[alive].long()
-    pos = torch.zeros((num_parts, 3), dtype=torch.float32, device=dev)
-    vel = torch.zeros((num_parts, 3), dtype=torch.float32, device=dev)
-    for k, (loc, off) in enumerate(((state.xl, xo), (state.yl, yo), (state.zl, zo))):
-        pos[idx, k] = (loc + off).reshape(-1)[alive]
-    for k, v in enumerate((state.vx, state.vy, state.vz)):
-        vel[idx, k] = v.reshape(-1)[alive]
-    return pos, vel
+    return (slab3_positions(state, geom, num_parts),
+            id_rows((state.vx, state.vy, state.vz), state.pid, num_parts))
 
 
 # ------------------------------------------------------------------- shift

@@ -33,6 +33,8 @@ __all__ = [
     "RebinMonitors",
     "slab_from_particles",
     "slab_to_particles",
+    "slab_positions",
+    "id_rows",
     "global_positions",
     "grid_force_xla",
     "grid_move",
@@ -214,21 +216,34 @@ def global_positions(state: SlabState, geom: SlabGeometry):
     return gx, gy
 
 
+def id_rows(columns, pid: torch.Tensor, num_parts: int) -> torch.Tensor:
+    """(num_parts, len(columns)) float32 rows in id order from slot planes:
+    each slot with ``pid >= 0`` writes its values to row ``pid``; a missing
+    id's row stays 0. Empty slots write to one row past the end, cut off:
+    nothing waits for the device, as it would for a boolean mask, whose
+    length is data (the JAX scatter drops them)."""
+    flat = pid.reshape(-1)
+    idx = torch.where(flat >= 0, flat, num_parts).long()
+    out = torch.zeros((num_parts + 1, len(columns)), dtype=torch.float32,
+                      device=pid.device)
+    for k, col in enumerate(columns):
+        out[idx, k] = col.reshape(-1)
+    return out[:num_parts]
+
+
+def slab_positions(state: SlabState, geom: SlabGeometry, num_parts: int):
+    """Id-ordered (N, 2) global positions (a saved frame)."""
+    bs = f32(geom.bin_size)
+    shape, dev = state.xl.shape, state.xl.device
+    row_off = _iota(shape, 1, dev).to(torch.float32) * bs
+    col_off = _iota(shape, 2, dev).to(torch.float32) * bs
+    return id_rows((state.xl + row_off, state.yl + col_off), state.pid, num_parts)
+
+
 def slab_to_particles(state: SlabState, geom: SlabGeometry, num_parts: int):
-    """Scatter slab state back to id-ordered (N, 2) pos/vel. Empty slots
-    (pid -1) are masked out explicitly (the JAX scatter drops them)."""
-    gx, gy = global_positions(state, geom)
-    flat_pid = state.pid.reshape(-1)
-    alive = flat_pid >= 0
-    idx = flat_pid[alive].long()
-    dev = state.xl.device
-    pos = torch.zeros((num_parts, 2), dtype=torch.float32, device=dev)
-    vel = torch.zeros((num_parts, 2), dtype=torch.float32, device=dev)
-    pos[idx, 0] = gx.reshape(-1)[alive]
-    pos[idx, 1] = gy.reshape(-1)[alive]
-    vel[idx, 0] = state.vx.reshape(-1)[alive]
-    vel[idx, 1] = state.vy.reshape(-1)[alive]
-    return pos, vel
+    """Scatter slab state back to id-ordered (N, 2) pos/vel."""
+    return (slab_positions(state, geom, num_parts),
+            id_rows((state.vx, state.vy), state.pid, num_parts))
 
 
 # ------------------------------------------------------------------- force

@@ -207,3 +207,37 @@ def test_repack_replay_streams_the_same_frames():
     assert streamed.frames.shape == (4, 10, 3)
     _assert_runs_equal(streamed, kept)
 
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_slab_positions_scatter_live_slots_only(ndim):
+    """The frame gather (``id_rows``, no boolean mask) against a loop over
+    the slots: each live slot's position lands in its id's row, empty
+    slots land nowhere, and an id no slot holds keeps a zero row."""
+    from ppsim_tpu_torch.ops import grid3d_ops, grid_ops
+
+    cfg = SimConfig(**(TINY3 if ndim == 3 else TINY2))
+    eng = get_engine("grid3d" if ndim == 3 else "grid", cfg, device="cpu")
+    slab = eng.init_carry(init_particles(cfg, seed=42)).slab
+    lost = int(slab.pid.reshape(-1).max())
+    slab = slab._replace(pid=torch.where(slab.pid == lost, -1, slab.pid))
+    # bin origins as the gather makes them: float32 index times float32 side
+    grids = np.meshgrid(*(np.arange(m, dtype=np.float32) for m in slab.pid.shape[1:]),
+                        indexing="ij")
+    if ndim == 3:
+        got = grid3d_ops.slab3_positions(slab, eng.geom, cfg.num_parts)
+        g = eng.geom  # bins (y, x, z); planes x, y, z
+        origin = [grids[1] * np.float32(g.bsx), grids[0] * np.float32(g.bsy),
+                  grids[2] * np.float32(g.bsz)]
+        planes = (slab.xl, slab.yl, slab.zl)
+    else:
+        got = grid_ops.slab_positions(slab, eng.geom, cfg.num_parts)
+        origin = [i * np.float32(eng.geom.bin_size) for i in grids]
+        planes = (slab.xl, slab.yl)
+    want = np.zeros((cfg.num_parts, ndim), np.float32)
+    pid = slab.pid.numpy()
+    for idx in zip(*np.nonzero(pid >= 0)):
+        for k, plane in enumerate(planes):
+            want[pid[idx], k] = plane.numpy()[idx] + origin[k][idx[1:]]
+    assert got.shape == (cfg.num_parts, ndim)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not want[lost].any()
