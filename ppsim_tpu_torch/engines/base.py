@@ -189,9 +189,7 @@ class FrameSink:
         else:
             slot = self._ring[row % len(self._ring)]
             self._land(slot)
-            taken = torch.cuda.Event()
-            taken.record(torch.cuda.current_stream(frame.device))
-            self._copy_stream.wait_event(taken)
+            self._copy_stream.wait_stream(torch.cuda.current_stream(frame.device))
             with torch.cuda.stream(self._copy_stream):
                 slot[0].copy_(frame, non_blocking=True)
             copied = torch.cuda.Event()
