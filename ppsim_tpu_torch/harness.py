@@ -230,11 +230,11 @@ def timed_run_repeats(engine, state: ParticleState, nsteps: int, savefreq: int,
     Returns ``(RunResult, [seconds, ...])`` of the last run.
 
     Saved frames follow ``Engine.run``'s budget (``engine.frame_sink``), as
-    the JAX package's two saved drivers do. Within ``max_device_frame_bytes``
+    the JAX package's two saved-run paths do. Within ``max_device_frame_bytes``
     they stay on the device and are copied to the host after the timer
     stops, as from the JAX package's one saved program. Past it they stream
     to host memory as the run goes and all have landed there when the timer
-    stops, as in the JAX package's chunked saved driver and the reference's
+    stops, as in the JAX package's chunked saved runs and the reference's
     ``-o`` runs (part1/main.cpp:132-137). Monitors are copied after the
     timer.
 

@@ -2,7 +2,7 @@
 the port of the JAX package's chunked saved runs) on a CPU device, where a
 streamed frame is copied to host memory as it is taken: streamed and kept
 frames agree bit for bit on every engine family, with the JAX package's
-chunked run, at the budget's boundary, through the timed driver and
+chunked run, at the budget's boundary, through the timed runs and
 through the 3D repack's replay."""
 
 import dataclasses
