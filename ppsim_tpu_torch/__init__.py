@@ -39,7 +39,9 @@ The port covers the whole JAX package, its TPU workarounds aside
   card's float32 FMA and stream rates and the step kernel's roofline
   (``python -m ppsim_tpu_torch.roofline``);
 - :mod:`ppsim_tpu_torch.profiling` — a ``torch.profiler`` window over
-  steps, the per-step phase split and a Chrome trace;
+  steps, the per-step phase split, a Chrome trace, the run path's
+  ``ppsim.*`` spans (off unless ``profiling.tracing()``) and the engines'
+  ``Counters``;
 - :mod:`ppsim_tpu_torch.convert` and :mod:`~ppsim_tpu_torch.testing` —
   configs and states carried across as numpy, and the test slabs, for the
   parity tests.

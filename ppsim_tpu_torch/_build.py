@@ -24,9 +24,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from typing import Callable, List, Optional, Union
 
-__all__ = ["BUILD_DIR", "build_shared", "kernels", "kernel_build_log", "nvcc_path"]
+__all__ = ["BUILD_DIR", "build_shared", "library_path", "kernels", "kernel_build_log",
+           "nvcc_path", "kernel_builds", "kernel_build_s"]
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -57,6 +59,22 @@ def _run_all(commands: List[List[str]], timeout: float):
     return results
 
 
+def _steps(command: Command, out_path: str) -> List[List[str]]:
+    cmd = command(out_path)
+    return [cmd] if isinstance(cmd[0], str) else cmd
+
+
+def library_path(name: str, sources: List[str], command: Command) -> str:
+    """Where :func:`build_shared` keeps the library of ``sources`` built
+    with ``command``: named by a hash of both."""
+    h = hashlib.sha256()
+    for path in sources:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h.update(repr(_steps(command, "OUT")).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
 def build_shared(name: str, sources: List[str], command: Command,
                  timeout: float = 600.0) -> str:
     """Build ``sources`` with ``command(out_path)`` unless an identical
@@ -65,22 +83,13 @@ def build_shared(name: str, sources: List[str], command: Command,
     together, and may write files named ``out_path + "." + anything``.
     Raises RuntimeError with the compiler's output on failure. The compiler's
     output of a successful build is kept beside the library as ``<lib>.log``."""
-    def steps(out_path):
-        cmd = command(out_path)
-        return [cmd] if isinstance(cmd[0], str) else cmd
-
-    h = hashlib.sha256()
-    for path in sources:
-        with open(path, "rb") as f:
-            h.update(os.path.basename(path).encode() + b"\0" + f.read())
-    h.update(repr(steps("OUT")).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    out = library_path(name, sources, command)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}.so"
     try:
-        *parallel, link = steps(tmp)
+        *parallel, link = _steps(command, tmp)
         log = []
         for group in (parallel, [link]):
             for argv, rc, text in _run_all(group, timeout):
@@ -113,13 +122,21 @@ def nvcc_path() -> str:
 
 _kernels: Optional[ctypes.CDLL] = None
 _kernels_path: Optional[str] = None
+#: This process's compiles of the kernel library (0 when a cached build was
+#: loaded) and the seconds of :func:`kernels`' first call (None before it).
+kernel_builds = 0
+kernel_build_s: Optional[float] = None
 
 
 def kernels() -> ctypes.CDLL:
-    """The kernel library, built on first call and loaded once per process."""
-    global _kernels, _kernels_path
+    """The kernel library, built on first call and loaded once per process
+    (the span ``ppsim.build``, ``built=1`` when it compiles)."""
+    global _kernels, _kernels_path, kernel_builds, kernel_build_s
     if _kernels is not None:
         return _kernels
+    from ppsim_tpu_torch.profiling import span
+
+    t0 = time.perf_counter()
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     nvcc = nvcc_path()
@@ -130,8 +147,10 @@ def kernels() -> ctypes.CDLL:
                 for src, obj in zip(sources, objs)] + [
                     [nvcc, "-shared", "-o", out, *objs]]
 
-    path = build_shared("ppsim_kernels", sources + headers, command)
-    lib = ctypes.CDLL(path)
+    built = not os.path.exists(library_path("ppsim_kernels", sources + headers, command))
+    with span("ppsim.build", {"built": int(built)}):
+        path = build_shared("ppsim_kernels", sources + headers, command)
+        lib = ctypes.CDLL(path)
     P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     for fn, types in (
             (lib.ppsim_grid_step, [P] * 17 + [I] * 12 + [F] * 10 + [P]),
@@ -149,6 +168,8 @@ def kernels() -> ctypes.CDLL:
     lib.ppsim_error_string.argtypes = [I]
     lib.ppsim_error_string.restype = ctypes.c_char_p
     _kernels, _kernels_path = lib, path
+    kernel_builds += built
+    kernel_build_s = time.perf_counter() - t0
     return lib
 
 

@@ -10,16 +10,26 @@ budget (``max_device_frame_bytes``, the JAX package's 2 GiB); past it each
 frame streams to host memory as it is taken (:class:`FrameSink`). Nothing
 inside the loop waits for the device, except a streamed run for the copy
 of the frame two frames back.
+
+Each piece of a run is a span (:func:`ppsim_tpu_torch.profiling.span`,
+recorded only under ``profiling.tracing()``): ``ppsim.run`` over a call of
+:meth:`Engine.run`, and inside it ``ppsim.pack``, ``ppsim.steps`` (with
+``ppsim.frame.gather`` a frame, and the sink's ``ppsim.frame.copy`` and
+``ppsim.frame.land`` over ``ppsim.frame.wait`` and
+``ppsim.frame.host_copy``), ``ppsim.gather`` and ``ppsim.result``. Each
+engine counts its runs, re-runs, steps and frames in ``engine.counters``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, NamedTuple, Optional, Type
 
 import numpy as np
 import torch
 
 from ppsim_tpu_torch.config import SimConfig
+from ppsim_tpu_torch.profiling import Counters, span
 from ppsim_tpu_torch.state import ParticleState
 
 __all__ = ["Monitors", "Carry", "RunResult", "FrameSink", "Engine",
@@ -154,12 +164,15 @@ class FrameSink:
 
     The host array is one (F, N, ndim) tensor, F the frames the run can
     take (``count``), allocated at the first frame; :meth:`to_numpy`
-    returns the rows taken as numpy.
+    returns the rows taken as numpy. ``counters`` (the engine's) count the
+    frames, the host's seconds waiting for a copy and copying into the
+    host array.
     """
 
-    def __init__(self, count: int, streams: bool):
+    def __init__(self, count: int, streams: bool, counters: Optional[Counters] = None):
         self.count = count
         self.streams = streams
+        self.counters = Counters() if counters is None else counters
         self._taken = 0
         self._host: Optional[torch.Tensor] = None
         self._kept: List[torch.Tensor] = []
@@ -184,26 +197,46 @@ class FrameSink:
         self._taken += 1
         if not self.streams:
             self._kept.append(frame)
-        elif not self._ring:
-            self._host[row].copy_(frame)
-        else:
-            slot = self._ring[row % len(self._ring)]
-            self._land(slot)
+            self.counters.frames_kept += 1
+            return
+        self.counters.frames_streamed += 1
+        self.counters.frame_bytes_streamed += frame.numel() * frame.element_size()
+        if not self._ring:
+            with span("ppsim.frame.copy", {"row": row}):
+                self._land_row(row, frame)
+            return
+        slot = self._ring[row % len(self._ring)]
+        self._land(slot)
+        with span("ppsim.frame.copy", {"row": row}):
             self._copy_stream.wait_stream(torch.cuda.current_stream(frame.device))
             with torch.cuda.stream(self._copy_stream):
                 slot[0].copy_(frame, non_blocking=True)
             copied = torch.cuda.Event()
             copied.record(self._copy_stream)
-            slot[1] = (row, frame, copied)
+        slot[1] = (row, frame, copied)
 
     def _land(self, slot) -> None:
         """Wait for the slot's copy, move its buffer into the host array and
         drop the frame's device tensor."""
         if slot[1] is not None:
             row, _, copied = slot[1]
-            copied.synchronize()
-            self._host[row].copy_(slot[0])
+            self._land_row(row, slot[0], copied)
             slot[1] = None
+
+    def _land_row(self, row: int, src: torch.Tensor, copied=None) -> None:
+        """Row ``row`` of the host array from ``src``, once the event
+        ``copied`` (if any) has fired."""
+        with span("ppsim.frame.land", {"row": row}):
+            t0 = time.perf_counter()
+            with span("ppsim.frame.wait"):
+                if copied is not None:
+                    copied.synchronize()
+            t1 = time.perf_counter()
+            with span("ppsim.frame.host_copy"):
+                self._host[row].copy_(src)
+            t2 = time.perf_counter()
+        self.counters.frame_wait_s += t1 - t0
+        self.counters.frame_host_copy_s += t2 - t1
 
     def flush(self) -> None:
         """Land every streamed frame in host memory (waits for their
@@ -218,7 +251,7 @@ class FrameSink:
             return None
         self.flush()
         for row, frame in enumerate(self._kept):
-            self._host[row].copy_(frame)
+            self._land_row(row, frame)
         self._kept.clear()
         return self._host[:self._taken].numpy()
 
@@ -232,6 +265,9 @@ class Engine:
     #: steps in one rebin period (the harness warms up one period); the
     #: particle-list engines rebin every step, the slab engines override it
     rebin_every = 1
+    #: set while an escalated engine re-runs a simulation (``ppsim.run``'s
+    #: ``rerun`` argument)
+    _rerunning = False
 
     def __init__(self, config: SimConfig, device="cuda"):
         config.validate()
@@ -243,6 +279,7 @@ class Engine:
             )
         self.config = config
         self.device = resolve_device(device)
+        self.counters = Counters()
 
     @property
     def capacity(self) -> int:
@@ -306,7 +343,8 @@ class Engine:
         frame_bytes = cfg.num_parts * cfg.ndim * cfg.torch_dtype.itemsize
         streams = (savefreq > 0 and max(1, nsteps // savefreq) * frame_bytes
                    > max_device_frame_bytes)
-        return FrameSink(saved_frame_count(nsteps, savefreq, start), streams)
+        return FrameSink(saved_frame_count(nsteps, savefreq, start), streams,
+                         self.counters)
 
     def run_steps(self, carry, nsteps: int, savefreq: int, start: int = 0,
                   after_step=None,
@@ -319,15 +357,20 @@ class Engine:
         after step ``i``. Returns (carry, frames), frames the run's
         :class:`FrameSink` (:meth:`frame_sink` of the budget)."""
         frames = self.frame_sink(nsteps, savefreq, start, max_device_frame_bytes)
-        for i in range(start + 1, start + nsteps + 1):
-            carry = self.step(carry, i)
-            stop = False
-            if after_step is not None:
-                carry, stop = after_step(carry, i)
-            if savefreq > 0 and (i - 1) % savefreq == 0:
-                frames.add(self.frame_of(carry))
-            if stop:
-                break
+        i = start
+        with span("ppsim.steps"):
+            for i in range(start + 1, start + nsteps + 1):
+                carry = self.step(carry, i)
+                stop = False
+                if after_step is not None:
+                    carry, stop = after_step(carry, i)
+                if savefreq > 0 and (i - 1) % savefreq == 0:
+                    with span("ppsim.frame.gather", {"row": len(frames)}):
+                        frame = self.frame_of(carry)
+                    frames.add(frame)
+                if stop:
+                    break
+        self.counters.steps_run += i - start
         return carry, frames
 
     def run(self, state: ParticleState, nsteps: Optional[int] = None,
@@ -339,10 +382,18 @@ class Engine:
         memory as the run goes, as the JAX package's chunked saved runs do;
         within it they stay on the device until the run ends."""
         nsteps = self.config.nsteps if nsteps is None else nsteps
-        carry = self.init_carry(state.to(self.device))
-        carry, frames = self.run_steps(carry, nsteps, savefreq,
-                                       max_device_frame_bytes=max_device_frame_bytes)
-        return self.result_of(carry, frames, self.final_state(carry))
+        self.counters.runs += 1
+        args = {"engine": self.name, "n": self.config.num_parts, "nsteps": nsteps,
+                "savefreq": savefreq, "ordinal": self.counters.runs,
+                "rerun": int(self._rerunning)}
+        with span("ppsim.run", args):
+            with span("ppsim.pack"):
+                carry = self.init_carry(state.to(self.device))
+            carry, frames = self.run_steps(carry, nsteps, savefreq,
+                                           max_device_frame_bytes=max_device_frame_bytes)
+            with span("ppsim.gather"):
+                final = self.final_state(carry)
+            return self.result_of(carry, frames, final)
 
     def step_state(self, state: ParticleState) -> ParticleState:
         """One step, state in and state out (global step 1: the slab engines
@@ -352,8 +403,9 @@ class Engine:
     def result_of(self, carry, frames: FrameSink, final: ParticleState) -> RunResult:
         """The run's result with monitors and frames copied to the host
         (waits for the device)."""
-        monitors = self.monitors_of(carry).to_host()
-        return RunResult(final, frames.to_numpy(), monitors, carry)
+        with span("ppsim.result"):
+            monitors = self.monitors_of(carry).to_host()
+            return RunResult(final, frames.to_numpy(), monitors, carry)
 
 
 _REGISTRY: Dict[str, Type[Engine]] = {}

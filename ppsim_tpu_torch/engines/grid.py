@@ -152,11 +152,18 @@ class GridEngine(Engine):
 
     def run(self, state: ParticleState, nsteps=None, savefreq: int = 0,
             max_device_frame_bytes: int = MAX_DEVICE_FRAME_BYTES):
+        steps_before = self.counters.steps_run
         result = super().run(state, nsteps, savefreq, max_device_frame_bytes)
         for _try in range(self._DROP_RETRIES):
             if not self.maybe_escalate_after_drop(result):
                 break
-            result = super().run(state, nsteps, savefreq, max_device_frame_bytes)
+            self.counters.note_rerun(steps_before)
+            steps_before = self.counters.steps_run
+            self._rerunning = True
+            try:
+                result = super().run(state, nsteps, savefreq, max_device_frame_bytes)
+            finally:
+                self._rerunning = False
         return result
 
     # ---- protocol ----------------------------------------------------------

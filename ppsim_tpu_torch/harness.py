@@ -52,7 +52,7 @@ from ppsim_tpu_torch.initlib import init_particles
 from ppsim_tpu_torch.io import (
     MetricsWriter, load_checkpoint, save_checkpoint, write_trajectory,
 )
-from ppsim_tpu_torch.profiling import trace
+from ppsim_tpu_torch.profiling import span, trace
 from ppsim_tpu_torch.state import ParticleState
 
 __all__ = ["main", "timed_run", "timed_run_repeats", "build_parser",
@@ -154,8 +154,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "process a shard under torchrun)")
     p.add_argument("--metrics", type=str, default=None, help="append a JSONL metrics record")
     p.add_argument("--trace", type=str, default=None, metavar="DIR",
-                   help="write a torch.profiler Chrome trace of the timed run "
-                        "to DIR/trace.json")
+                   help="write a torch.profiler Chrome trace of the timed run, "
+                        "the program's ppsim.* spans over its operations and "
+                        "kernels, to DIR/trace.json")
     return p
 
 
@@ -272,9 +273,12 @@ def timed_run_repeats(engine, state: ParticleState, nsteps: int, savefreq: int,
         carry = frames = None  # the last run's slab and frames go first
         _sync(engine.device)
         t0 = time.perf_counter()
-        carry, frames = run_switched(engine, engine.init_carry(state), nsteps,
-                                     savefreq, switch_at, max_device_frame_bytes)
-        final = engine.final_state(carry)
+        with span("ppsim.pack"):
+            carry = engine.init_carry(state)
+        carry, frames = run_switched(engine, carry, nsteps, savefreq, switch_at,
+                                     max_device_frame_bytes)
+        with span("ppsim.gather"):
+            final = engine.final_state(carry)
         frames.flush()
         _sync(engine.device)
         times.append(time.perf_counter() - t0)
@@ -285,11 +289,15 @@ def timed_run(engine, state: ParticleState, nsteps: int, savefreq: int):
     """Single-shot :func:`timed_run_repeats` (the reference times exactly one
     run). Auto-capacity engines self-heal on dropped particles here too: the
     engine raises its capacity and the run restarts from the initial state;
-    the reported time is the last (clean) attempt's."""
+    the reported time is the last (clean) attempt's; ``engine.counters``
+    count the re-runs and the steps they discarded."""
+    steps_before = engine.counters.steps_run
     result, times = timed_run_repeats(engine, state, nsteps, savefreq)
     for _try in range(2):
         if not engine.maybe_escalate_after_drop(result):
             break
+        engine.counters.note_rerun(steps_before)
+        steps_before = engine.counters.steps_run
         result, times = timed_run_repeats(engine, state, nsteps, savefreq)
     return result, times[0]
 
@@ -409,6 +417,7 @@ def main(argv=None) -> int:
             "migrate_dropped": int(result.monitors.migrate_dropped),
             "capacity": engine.capacity,
             "device": device_name(engine.device),
+            **engine.counters.record(),
             **check_rec,
         }
     )

@@ -11,22 +11,122 @@ of :mod:`ppsim_tpu.profiling`).
   carry under ``torch.profiler`` (CPU and CUDA activities) and returns the
   device time of every kernel by name, the window's wall time (host clock
   around work that ends in ``torch.cuda.synchronize()``) and the device idle
-  share, ``1 - kernel time / wall time``. It needs a CUDA device: a window on
-  the CPU measures nothing of the card.
+  share, ``1 - busy time / wall time``, busy the union of the device's
+  activity intervals. It needs a CUDA device: a window on the CPU measures
+  nothing of the card.
 - :func:`trace` — a ``torch.profiler`` context that writes a Chrome trace
-  (the CLI's ``--trace``).
+  (the CLI's ``--trace``), with the program's spans turned on.
+- :func:`span` — the program's own spans (``ppsim.run``, ``ppsim.pack``,
+  ``ppsim.steps``, ``ppsim.frame.*``, ``ppsim.gather``, ``ppsim.result``,
+  ``ppsim.build``): off by default, where a span is one shared null
+  context; inside :func:`tracing` each is a ``record_function``, which the
+  profiler records on the clock of the CUDA activities, so a span and the
+  kernels it launched share one timeline. Spans nest on their thread.
+- :class:`Counters` — what an engine did, in plain numbers, always on and
+  updated once a run or a frame (``Engine.counters``); with the kernel
+  library's build (``_build.kernel_builds``, ``kernel_build_s``) in
+  :meth:`Counters.record`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["ProfileWindow", "profile_steps", "phase_times", "timeit_steps", "trace"]
+__all__ = ["ProfileWindow", "profile_steps", "phase_times", "timeit_steps", "trace",
+           "span", "tracing", "span_label", "parse_span", "Counters", "union_ms",
+           "device_intervals_ms"]
+
+#: Whether :func:`span` records; only :func:`tracing` sets it.
+_spans_on = False
+_OFF = contextlib.nullcontext()
+
+
+def span_label(name: str, args: Optional[dict] = None) -> str:
+    """The name a span is recorded under: ``name``, then ``key=value`` for
+    each of ``args`` after a space. The profiler keeps no argument string
+    of a ``record_function`` in its events or its Chrome trace, so a span's
+    arguments travel in its name (:func:`parse_span` splits them off)."""
+    if not args:
+        return name
+    return name + " " + " ".join(f"{k}={v}" for k, v in args.items())
+
+
+def parse_span(label: str) -> Tuple[str, Dict[str, str]]:
+    """``(name, args)`` of a label written by :func:`span_label`."""
+    name, _, rest = label.partition(" ")
+    return name, dict(kv.split("=", 1) for kv in rest.split())
+
+
+def span(name: str, args: Optional[dict] = None):
+    """A context manager over one piece of the program's work. Off (the
+    default) it is one shared ``contextlib.nullcontext()``: no clock read,
+    no record. Inside :func:`tracing` it is
+    ``torch.profiler.record_function`` under :func:`span_label`, which
+    costs ~12 us even with no profiler running."""
+    if not _spans_on:
+        return _OFF
+    return torch.profiler.record_function(span_label(name, args))
+
+
+@contextlib.contextmanager
+def tracing():
+    """Spans on for the block, then as they were. Nothing else turns them
+    on: a ``torch.profiler`` window opened elsewhere records none."""
+    global _spans_on
+    before, _spans_on = _spans_on, True
+    try:
+        yield
+    finally:
+        _spans_on = before
+
+
+@dataclasses.dataclass
+class Counters:
+    """What one engine did over its life. Updated once a run, a re-run or a
+    frame, never a step; the host seconds are ``time.perf_counter()``
+    differences."""
+
+    runs: int = 0  # calls of the base Engine.run
+    reruns: int = 0  # simulations re-run after a capacity escalation
+    steps_run: int = 0  # steps of Engine.run_steps, re-runs included
+    steps_discarded: int = 0  # steps of runs that were then re-run
+    frames_kept: int = 0  # frames kept on the device until the run's end
+    frames_streamed: int = 0  # frames streamed to host memory as taken
+    frame_bytes_streamed: int = 0
+    frame_wait_s: float = 0.0  # host blocked on a frame's copy event
+    frame_host_copy_s: float = 0.0  # host copying frames into the host array
+
+    def note_rerun(self, steps_before: int) -> None:
+        """A re-run follows: the steps run since ``steps_before`` (a value
+        of ``steps_run``) were discarded."""
+        self.reruns += 1
+        self.steps_discarded += self.steps_run - steps_before
+
+    def record(self) -> dict:
+        """The counters as a dict, with the process's kernel library build:
+        ``kernel_builds`` (compiles; 0 for a cached library) and
+        ``kernel_build_s`` (seconds of its first load; None before it)."""
+        from ppsim_tpu_torch import _build
+
+        return dict(dataclasses.asdict(self), kernel_builds=_build.kernel_builds,
+                    kernel_build_s=_build.kernel_build_s)
+
+
+def union_ms(intervals: Sequence[Tuple[float, float]]) -> float:
+    """Length of the union of ``(start, end)`` intervals: two streams'
+    overlap counts once."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
 
 
 def _sync(device) -> None:
@@ -148,15 +248,16 @@ def _particle_phase_times(engine, state, steps: int = 50) -> Dict[str, float]:
 @contextlib.contextmanager
 def trace(log_dir: str):
     """``torch.profiler`` over the block (CPU activity, and CUDA where a GPU
-    is present), written to ``log_dir/trace.json`` as a Chrome trace (open
-    it in chrome://tracing or Perfetto)."""
+    is present), with the program's spans on (:func:`tracing`), written to
+    ``log_dir/trace.json`` as a Chrome trace (open it in chrome://tracing
+    or Perfetto)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, tracing():
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
@@ -166,10 +267,13 @@ class ProfileWindow(NamedTuple):
     wall_ms: float
     kernel_ms: float  # summed device time of all kernels
     kernels: list  # [(name, device ms, calls), ...], largest first
+    busy_ms: float  # the union of the device's activity intervals
 
     @property
     def idle_share(self) -> float:
-        return 1.0 - self.kernel_ms / self.wall_ms
+        """``1 - busy / wall``; busy is a union, so a copy stream's overlap
+        with the compute stream counts once."""
+        return 1.0 - self.busy_ms / self.wall_ms
 
     def table(self, top: int = 8) -> str:
         lines = [f"{'kernel':60s} {'device ms':>11s} {'share':>7s} {'calls':>6s}"]
@@ -177,8 +281,21 @@ class ProfileWindow(NamedTuple):
             lines.append(f"{name[:60]:60s} {ms:11.3f} "
                          f"{100 * ms / self.kernel_ms:6.2f}% {calls:6d}")
         lines.append(f"window {self.wall_ms:.3f} ms wall, {self.kernel_ms:.3f} "
-                     f"ms kernels, device idle share {self.idle_share:.4f}")
+                     f"ms kernels, {self.busy_ms:.3f} ms busy, device idle share "
+                     f"{self.idle_share:.4f}")
         return "\n".join(lines)
+
+
+def device_intervals_ms(events) -> list:
+    """``[(start, end), ...]`` in ms of the device activities among
+    ``profile.events()``: kernels, copies and memsets, not the ranges the
+    profiler draws for user annotations on the device's timeline."""
+    out = []
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            out.append((e.time_range.start / 1e3, e.time_range.end / 1e3))
+    return out
 
 
 def profile_steps(engine, carry, first_step: int, nsteps: int):
@@ -210,4 +327,5 @@ def profile_steps(engine, carry, first_step: int, nsteps: int):
     kernel_ms = sum(r[1] for r in rows)
     if kernel_ms <= 0.0:
         raise RuntimeError("torch.profiler recorded no device time")
-    return carry, ProfileWindow(steps, wall_ms, kernel_ms, rows)
+    busy_ms = union_ms(device_intervals_ms(prof.events()))
+    return carry, ProfileWindow(steps, wall_ms, kernel_ms, rows, busy_ms)
