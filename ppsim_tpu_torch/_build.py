@@ -158,7 +158,7 @@ def kernels() -> ctypes.CDLL:
             (lib.ppsim_rebin_axes, [P] * 31 + [I] * 14 + [F] * 2 + [P]),
             (lib.ppsim_rebin_counts, [P] * 4 + [I] * 7 + [F] + [P]),
             (lib.ppsim_rebin_shuffle, [P] * 24 + [I] * 13 + [F] * 2 + [P]),
-            (lib.ppsim_grid3_step, [P] * 19 + [I] * 15 + [F] * 12 + [P]),
+            (lib.ppsim_grid3_step, [P] * 20 + [I] * 15 + [F] * 12 + [P]),
             (lib.ppsim_rebin3_inplane, [P] * 15 + [I] * 15 + [F] * 5 + [P]),
             (lib.ppsim_rebin3_ypass, [P] * 32 + [I] * 10 + [F] * 4 + [P]),
             (lib.ppsim_fma_chain, [P, P, L, I, I, I, P]),

@@ -15,10 +15,12 @@
 // 3.35 TB/s). Operations: each live particle must meet every live slot of
 // its 27 neighbour bins, ~2.2G ordered candidate pairs per step there, of
 // which under 1% lie inside the cutoff (the bins are 2-4 cutoffs wide). So
-// what bounds the kernel on this card is the issue rate of distance tests
-// that fail, with their addressing and warp divergence; not the force law
-// and not the bytes. Tensor cores have no part: each test is an elementwise
-// float32 distance held to the plain twin's rounding.
+// the kernel is bound by instruction issue, not by the bytes: the distance
+// tests, most of which fail, with their addressing and the warp divergence
+// over the neighbour bins' counts, and the pair coefficients of the few
+// that pass (the LJ law's three IEEE divisions). Tensor cores have no part:
+// each test is an elementwise float32 distance held to the plain twin's
+// rounding.
 //
 // Design. One block owns an (x, z) tile of tx x tz bins over a segment of
 // y-slabs and walks it in y. It keeps a ring of four slab buffers in shared
@@ -55,6 +57,25 @@
 // memory that this design replaces lost 3.7-5.2x (PERF.md). The tile, the segment
 // length, the block size and the shared-memory bytes come from the Python
 // plan (cuda_grid3.step3_plan), which this entry point checks.
+//
+// Deferred pairs. The walk over the kept bins only tests r2 <= c2: a pair
+// that passes is queued as its (direction, compacted slot), 10 bits in a
+// 64-bit register, up to kQueue of them. When the walk ends, or the queue
+// is full, the thread drains it oldest first: it recomputes each pair's
+// offsets and r2 with the same rounded ops (the same bits), evaluates the
+// coefficient and adds the force. So each particle adds the same terms in
+// the same order as when every hit was evaluated in place, and the outputs
+// are bitwise those of evaluating each hit where the walk meets it. The
+// coefficient is a branch that a warp runs whenever one of its lanes needs
+// it: evaluated in place, a warp ran it at most kept bins that held a lane's
+// own particle (each particle meets itself) or a neighbour in range, with
+// one or two lanes busy; drained, it runs as many times as the lane with the
+// most hits has pairs. Given a counter pair, the kernel counts the pairs
+// inside the cutoff (self pairs included) and the warp passes of the
+// coefficient: a register each per thread, an atomic add each per warp at
+// the end. It counts in an instance of its own (COUNT), since counting
+// costs ~1% of a call; a call without counters launches the one that does
+// not count.
 //
 // Shards (the sharded engine, ops/cuda_grid3.py). A shard's planes are y
 // slabs y0 .. y0 + Y - 1 of the global slab; y0 enters the wall fold, and
@@ -96,6 +117,11 @@ constexpr uint32_t kDXM = 0x1C0E07u;
 constexpr uint32_t kDYM = 0x1FFu;
 constexpr uint32_t kDZM = 0x1249249u;
 
+// Hits a thread queues before it drains them: 10 bits each (direction << 5
+// | compacted slot) in a 64-bit register. A particle of the stretch config's
+// late gas has ~1.6 (itself and a Poisson(0.6) count of neighbours).
+constexpr int kQueue = 6;
+
 struct Fields {
   const float* x;
   const float* y;
@@ -136,11 +162,30 @@ __device__ __forceinline__ float r2_of(float dx, float dy, float dz) {
                    __fmul_rn(dz, dz));
 }
 
-// SHARD: K3 with a y offset and ghost slabs.
-template <Law LAW, bool SHARD>
-__global__ void __launch_bounds__(ppsim::kTileThreads)
-grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
-                  Tile3 t, Ghost3 gh, PairParams pp, float dt, float L) {
+// Count one drain's warp passes of the coefficient: the most pairs that a
+// lane among those draining together holds, added by the lowest of them.
+__device__ __forceinline__ void note_passes(unsigned& passes, int nq) {
+  const unsigned act = __activemask();
+  const unsigned most = __reduce_max_sync(act, (unsigned)nq);
+  if ((int)(threadIdx.x & 31) == __ffs(act) - 1) passes += most;
+}
+
+// Blocks an SM an instance is built for (__launch_bounds__). The ring's
+// shared memory leaves room for 3 blocks an SM up to capacity 11 at the
+// 4 x 16 tile (the 3D repulsive config) and for 2 above it (the stretch
+// config's 13), so the instances that step are held to the 80 registers
+// that 3 blocks allow; both laws' bodies fit in them without spilling. The
+// counting instances, launched only to measure, are held to 2: with its two
+// counters the repulsive body would spill at 80.
+constexpr int min_blocks(bool count) { return count ? 2 : 3; }
+
+// SHARD: K3 with a y offset and ghost slabs. COUNT: K3 adding its pairs
+// inside the cutoff and its warp passes of the coefficient to counts.
+template <Law LAW, bool SHARD, bool COUNT>
+__global__ void __launch_bounds__(ppsim::kTileThreads, min_blocks(COUNT))
+grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp,
+                  unsigned long long* __restrict__ counts, Geo3 g, Tile3 t,
+                  Ghost3 gh, PairParams pp, float dt, float L) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int HX = t.tx + 2, HZ = t.tz + 2, HB = HX * HZ, OB = t.tx * t.tz;
   const TileLayout lay = ppsim::tile_layout(3, g.cap, HB, OB);
@@ -248,6 +293,7 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
 
   const float twoL = 2.0f * L;
   const float cutm = pp.cutoff * 1.000001f;
+  unsigned hits = 0, passes = 0;  // COUNT: this thread's pairs and passes
   for (int y = ya; y < yb; ++y) {
     // slab y+2 streams in while slab y computes
     if (y + 1 < yb) issue(y + 2);
@@ -317,35 +363,72 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
       if (__fsub_rn(__fadd_rn(fc[4 * OB], -g.bsz), sz) < -cutm) m &= ~kDZM;
       if (__fsub_rn(__fadd_rn(fc[5 * OB], g.bsz), sz) > cutm)
         m &= ~(kDZM << 2);
-      // the remaining bins in DIRS3 order (dy, dx, dz ascending)
-      while (m) {
-        const int d = __ffs(m) - 1;
-        m &= m - 1;
-        const int dy = d / 9 - 1, dx = d / 3 % 3 - 1, dz = d % 3 - 1;
-        const unsigned char* nb = buf(y + dy);
-        const float offy = (float)dy * g.bsy;  // exactly -bsy, 0 or bsy
-        const float offx = (float)dx * g.bsx;
-        const float offz = (float)dz * g.bsz;
-        const int hn = h0 + dx * HZ + dz;
-        const int n = nb[lay.ncnt + hn];
-        const float* px = reinterpret_cast<const float*>(nb) + hn;
-        const float* py = px + cap * HB;
-        const float* pz = py + cap * HB;
-        for (int j = 0; j < n; ++j) {
-          const float xno = __fadd_rn(px[j * HB], offx);
-          const float yno = __fadd_rn(py[j * HB], offy);
-          const float zno = __fadd_rn(pz[j * HB], offz);
-          const float ddx = __fsub_rn(xno, sx);
-          const float ddy = __fsub_rn(yno, sy);
-          const float ddz = __fsub_rn(zno, sz);
-          const float r2 = r2_of(ddx, ddy, ddz);
-          if (r2 <= pp.c2) {
-            const float coef = ppsim::pair_coef<LAW>(r2, pp);
-            ax = __fadd_rn(ax, __fmul_rn(coef, ddx));
-            ay = __fadd_rn(ay, __fmul_rn(coef, ddy));
-            az = __fadd_rn(az, __fmul_rn(coef, ddz));
+      // Walk the remaining bins in DIRS3 order (dy, dx, dz ascending),
+      // queueing the hits (newest in the low bits). A full queue stops the
+      // walk at bin bit d of m, slot j0; the drain empties it oldest first
+      // and the walk resumes there, so the pairs drain in the order met.
+      uint64_t q = 0;
+      int nq = 0, j0 = 0;
+      bool full = true;
+      while (full) {
+        full = false;
+        while (m) {
+          const int d = __ffs(m) - 1;
+          const int dy = d / 9 - 1, dx = d / 3 % 3 - 1, dz = d % 3 - 1;
+          const unsigned char* nb = buf(y + dy);
+          const float offy = (float)dy * g.bsy;  // exactly -bsy, 0 or bsy
+          const float offx = (float)dx * g.bsx;
+          const float offz = (float)dz * g.bsz;
+          const int hn = h0 + dx * HZ + dz;
+          const int n = nb[lay.ncnt + hn];
+          const float* px = reinterpret_cast<const float*>(nb) + hn;
+          const float* py = px + cap * HB;
+          const float* pz = py + cap * HB;
+          int j = j0;
+          for (; j < n; ++j) {
+            const float xno = __fadd_rn(px[j * HB], offx);
+            const float yno = __fadd_rn(py[j * HB], offy);
+            const float zno = __fadd_rn(pz[j * HB], offz);
+            const float ddx = __fsub_rn(xno, sx);
+            const float ddy = __fsub_rn(yno, sy);
+            const float ddz = __fsub_rn(zno, sz);
+            if (r2_of(ddx, ddy, ddz) <= pp.c2) {
+              q = q << 10 | (uint64_t)(d << 5 | j);
+              if (++nq == kQueue) {
+                full = true;
+                break;
+              }
+            }
           }
+          if (full) {
+            j0 = j + 1;
+            break;
+          }
+          m &= m - 1;
+          j0 = 0;
         }
+        // the drain: each queued pair's offsets and r2 recomputed with the
+        // walk's own rounded ops, then its coefficient and force
+        if constexpr (COUNT) note_passes(passes, nq);
+        for (int e = nq - 1; e >= 0; --e) {
+          const int r = (int)(q >> (10 * e)) & 1023;
+          const int d = r >> 5, j = r & 31;
+          const int dy = d / 9 - 1, dx = d / 3 % 3 - 1, dz = d % 3 - 1;
+          const float* px = reinterpret_cast<const float*>(buf(y + dy)) + h0 +
+                            dx * HZ + dz + j * HB;
+          const float ddx = __fsub_rn(__fadd_rn(px[0], (float)dx * g.bsx), sx);
+          const float ddy =
+              __fsub_rn(__fadd_rn(px[cap * HB], (float)dy * g.bsy), sy);
+          const float ddz =
+              __fsub_rn(__fadd_rn(px[2 * cap * HB], (float)dz * g.bsz), sz);
+          const float coef = ppsim::pair_coef<LAW>(r2_of(ddx, ddy, ddz), pp);
+          ax = __fadd_rn(ax, __fmul_rn(coef, ddx));
+          ay = __fadd_rn(ay, __fmul_rn(coef, ddy));
+          az = __fadd_rn(az, __fmul_rn(coef, ddz));
+        }
+        if constexpr (COUNT) hits += nq;
+        q = 0;
+        nq = 0;
       }
       // Verlet + wall fold (grid3d_ops.move3_planes) of a live slot
       float vx = __fadd_rn(in.vx[i], __fmul_rn(ax, dt));
@@ -377,22 +460,34 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp, Geo3 g,
     if (y + 1 < yb) compact(y + 2);
     __syncthreads();
   }
+  if constexpr (COUNT) {
+    const unsigned wh = __reduce_add_sync(0xffffffffu, hits);
+    const unsigned wp = __reduce_add_sync(0xffffffffu, passes);
+    if ((tid & 31) == 0) {
+      atomicAdd(counts, (unsigned long long)wh);
+      atomicAdd(counts + 1, (unsigned long long)wp);
+    }
+  }
 }
 
 template <Law LAW>
-int launch(const Fields& in, const Outs& out, float* sp, const Geo3& g,
+int launch(const Fields& in, const Outs& out, float* sp,
+           unsigned long long* counts, const Geo3& g,
            const Tile3& t, const Ghost3& gh, int threads, int blocks,
            int smem, const PairParams& pp, float dt, float L,
            cudaStream_t s) {
   const bool shard = gh.y0 != 0 || gh.tx || gh.bx;
-  auto kernel = shard ? grid3_step_kernel<LAW, true>
-                      : grid3_step_kernel<LAW, false>;
+  auto kernel = shard ? (counts ? grid3_step_kernel<LAW, true, true>
+                                : grid3_step_kernel<LAW, true, false>)
+                      : (counts ? grid3_step_kernel<LAW, false, true>
+                                : grid3_step_kernel<LAW, false, false>);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<blocks, threads, smem, s>>>(in, out, sp, g, t, gh, pp, dt, L);
+  kernel<<<blocks, threads, smem, s>>>(in, out, sp, counts, g, t, gh, pp, dt,
+                                       L);
   return (int)cudaGetLastError();
 }
 
@@ -401,10 +496,12 @@ int launch(const Fields& in, const Outs& out, float* sp, const Geo3& g,
 extern "C" {
 
 // Inputs x, y, z, vx, vy, vz; outputs likewise; sp the (Y, X, Z) speed
-// plane. law 0 = repulsive, 1 = Lennard-Jones. A shard passes the global
-// index y0 of its slab 0 and its ghost slabs (gtx, gty, gtz: slab -1; gbx,
-// gby, gbz: slab Y; each [cap][X][Z]); null ghosts count as empty slabs, and
-// the three of one side come together or not at all. The launch plan (tile tx x
+// plane; counts null, or two int64 counters to which the launch adds its
+// pairs inside the cutoff (self pairs included) and its warp passes of the
+// pair coefficient. law 0 = repulsive, 1 = Lennard-Jones. A shard passes the
+// global index y0 of its slab 0 and its ghost slabs (gtx, gty, gtz: slab -1;
+// gbx, gby, gbz: slab Y; each [cap][X][Z]); null ghosts count as empty slabs,
+// and the three of one side come together or not at all. The launch plan (tile tx x
 // tz, segment length, threads, blocks, shared bytes) must be the one
 // cuda_grid3.step3_plan gives for this shape; anything else returns
 // cudaErrorInvalidValue. Returns cudaGetLastError() after the launch
@@ -414,9 +511,10 @@ int ppsim_grid3_step(const float* x, const float* y, const float* z,
                      const float* gtx, const float* gty, const float* gtz,
                      const float* gbx, const float* gby, const float* gbz,
                      float* xo, float* yo, float* zo, float* vxo, float* vyo,
-                     float* vzo, float* sp, int device, int cap,
-                     int Y, int X, int Z, int y0, int xs, int zs, int law, int tx,
-                     int tz, int seg, int threads, int blocks, int smem,
+                     float* vzo, float* sp, long long* counts, int device,
+                     int cap, int Y, int X, int Z, int y0, int xs, int zs,
+                     int law, int tx, int tz, int seg, int threads, int blocks,
+                     int smem,
                      float bsx, float bsy, float bsz, float c2, float cutoff,
                      float mr2, float inv_mass, float sig2, float lj_k,
                      float mass, float dt, float L, void* stream) {
@@ -440,12 +538,13 @@ int ppsim_grid3_step(const float* x, const float* y, const float* z,
   const Tile3 t{tx, tz, seg};
   const Ghost3 gh{gtx, gty, gtz, gbx, gby, gbz, y0};
   const PairParams pp{c2, cutoff, mr2, inv_mass, sig2, lj_k, mass};
+  unsigned long long* cnt = reinterpret_cast<unsigned long long*>(counts);
   if (law == (int)Law::kRepulsive)
-    return launch<Law::kRepulsive>(in, out, sp, g, t, gh, threads, blocks,
-                                   smem, pp, dt, L, s);
+    return launch<Law::kRepulsive>(in, out, sp, cnt, g, t, gh, threads,
+                                   blocks, smem, pp, dt, L, s);
   if (law == (int)Law::kLJ)
-    return launch<Law::kLJ>(in, out, sp, g, t, gh, threads, blocks, smem, pp,
-                            dt, L, s);
+    return launch<Law::kLJ>(in, out, sp, cnt, g, t, gh, threads, blocks, smem,
+                            pp, dt, L, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -405,7 +405,12 @@ class Engine:
         (waits for the device)."""
         with span("ppsim.result"):
             monitors = self.monitors_of(carry).to_host()
+            self.read_device_counters()
             return RunResult(final, frames.to_numpy(), monitors, carry)
+
+    def read_device_counters(self) -> None:
+        """Fold counters kept on the device into ``self.counters``, once a
+        run (the 3D slab engines' pair counts); nothing by default."""
 
 
 _REGISTRY: Dict[str, Type[Engine]] = {}

@@ -17,6 +17,12 @@ capacity, the timed runs (``harness.timed_run_repeats``) take a prologue
 at that packing capacity and then repack the slab down to the run capacity
 (``repack_plan`` / ``attempt_repack`` / ``commit_repack``): on by default for
 the repulsive law, off for LJ, whose run outgrows its packing.
+
+Inside ``profiling.tracing()`` each engine counts, on the device, the pairs
+inside the cutoff of every step and, where K3 runs, K3's warp passes of the
+pair coefficient (``pair_counts``; ``ops/cuda_grid3.py``), and folds the
+totals into ``counters.pair_hits`` and ``counters.coef_warp_passes`` once a
+run. Outside it nothing counts: K3's counting instance costs ~1% of a call.
 """
 
 from __future__ import annotations
@@ -27,9 +33,12 @@ import sys
 
 import torch
 
+from ppsim_tpu_torch import profiling
 from ppsim_tpu_torch.engines.base import Engine, register_engine
 from ppsim_tpu_torch.engines.grid import GridCarry, GridEngine, seed_pack_monitors
 from ppsim_tpu_torch.ops import grid3d_ops
+from ppsim_tpu_torch.ops.cuda_grid import pair_args
+from ppsim_tpu_torch.ops.cuda_grid3 import new_counts
 from ppsim_tpu_torch.ops.grid3d_ops import Geometry3S, Slab3State
 from ppsim_tpu_torch.state import ParticleState
 
@@ -76,6 +85,9 @@ class Grid3DEngine(GridEngine):
             raise ValueError("the port implements grid_pack_mode='sort' only")
         self.geom = Geometry3S.for_config(config)
         self._pack_capacity = None  # known after the first init_carry
+        # (pairs inside the cutoff, K3's coefficient passes) over the
+        # engine's life; read once a run
+        self.pair_counts = new_counts(self.device)
         self._pack_spill = False
         self._escalated_floor = 0  # the capacity a drop escalated to
 
@@ -105,12 +117,37 @@ class Grid3DEngine(GridEngine):
                 f"stale-bin slack violated: {drift:.4g} > {self._slack():.4g}; "
                 "lower rebin3_every or raise grid3_bin_scale")
 
+    def read_device_counters(self) -> None:
+        c = self.counters
+        c.pair_hits, c.coef_warp_passes = self.pair_counts.tolist()
+
+    def step_counts(self):
+        """``pair_counts`` inside ``profiling.tracing()``, where the steps
+        count; None outside it."""
+        return self.pair_counts if profiling.spans_on() else None
+
+    def hit_c2(self):
+        """The cutoff^2 that K3 tests against, for ``grid3_force_xla``'s
+        count, inside ``profiling.tracing()``; None outside it."""
+        if not profiling.spans_on():
+            return None
+        cfg = self.config
+        return pair_args(cfg.force_law, cfg.cutoff, cfg.min_r, cfg.mass,
+                         cfg.law_params)[1]
+
+    def count_hits(self, force, alive) -> None:
+        """Add the live slots' pairs inside the cutoff (``force[3]``, where
+        ``grid3_force_xla`` had ``hit_c2()``) to ``pair_counts``."""
+        if len(force) == 4:
+            self.pair_counts[0] += torch.where(alive, force[3], 0).sum()
+
     # ---- phases (the cuda3d engine overrides these two) --------------------
     def move_phase(self, slab: Slab3State):
         cfg = self.config
-        accel = grid3d_ops.grid3_force_xla(slab.xl, slab.yl, slab.zl,
-                                           self.geom, _coef_of(cfg))
-        return grid3d_ops.grid3_move(slab, accel, self.geom, cfg.dt, cfg.size)
+        force = grid3d_ops.grid3_force_xla(slab.xl, slab.yl, slab.zl, self.geom,
+                                           _coef_of(cfg), self.hit_c2())
+        self.count_hits(force, slab.pid >= 0)
+        return grid3d_ops.grid3_move(slab, force[:3], self.geom, cfg.dt, cfg.size)
 
     def rebin_of(self, slab: Slab3State):
         return grid3d_ops.grid3_rebin_axes(slab, self.geom,
@@ -277,7 +314,8 @@ class Cuda3DEngine(Grid3DEngine):
         cfg = self.config
         *planes, speed2 = grid3_step_cuda(
             *slab[:6], self.geom, cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt,
-            cfg.size, law=cfg.force_law, law_params=cfg.law_params)
+            cfg.size, law=cfg.force_law, law_params=cfg.law_params,
+            counts=self.step_counts())
         # dead slots hold v = 0, so the plane's max is the slabs' max
         return Slab3State(*planes, slab.pid), torch.sqrt(speed2.max())
 

@@ -98,19 +98,21 @@ class ShardedGrid3DEngine(Grid3DEngine):
         for i, (s, d) in enumerate(zip(shards, mesh.shards)):
             (tx, bx), (ty, by), (tz, bz) = gx[i], gy[i], gz[i]
             if self.impl == "plain":
-                ax, ay, az = grid3d_ops.grid3_force_xla(
+                force = [a[:, 1:-1] for a in grid3d_ops.grid3_force_xla(
                     torch.cat([tx, s.xl, bx], 1), torch.cat([ty, s.yl, by], 1),
-                    torch.cat([tz, s.zl, bz], 1), geom, _coef_of(cfg))
-                new, ms = grid3d_ops.grid3_move(
-                    s, (ax[:, 1:-1], ay[:, 1:-1], az[:, 1:-1]), geom, cfg.dt,
-                    cfg.size, y0=self.y0(d))
+                    torch.cat([tz, s.zl, bz], 1), geom, _coef_of(cfg),
+                    self.hit_c2())]
+                self.count_hits(force, s.pid >= 0)
+                new, ms = grid3d_ops.grid3_move(s, force[:3], geom, cfg.dt,
+                                                cfg.size, y0=self.y0(d))
                 out.append(new)
                 speed.append(ms)
             else:
                 *planes, sp2 = grid3_step_cuda(
                     *s[:6], geom, cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt,
                     cfg.size, law=cfg.force_law, law_params=cfg.law_params,
-                    y0=self.y0(d), ghosts=(tx, ty, tz, bx, by, bz))
+                    y0=self.y0(d), ghosts=(tx, ty, tz, bx, by, bz),
+                    counts=self.step_counts())
                 out.append(Slab3State(*planes, s.pid))
                 speed.append(sp2.max())
         max_speed = mesh.pmax(speed)

@@ -17,6 +17,15 @@ first y slab, and ``ghosts``, the neighbouring shards' boundary slabs
 float32 (the JAX package's layout), which take the place of the empty slabs
 above and below the planes. K3 is owner-computes, so a ghost slab is only
 read.
+
+Both count into ``counts``, when given: an int64 tensor of two on the planes'
+device. Its first element gains the step's pairs inside the cutoff (each
+live own particle with every live slot within the cutoff in its 27 bins,
+itself included), its second the kernel's warp passes of the pair
+coefficient, which the plain twin leaves as it is. K3 tests every pair it
+does not cut, and cuts only pairs outside the cutoff, so both count the
+same pairs. With ``counts`` K3 launches its counting instance, ~1% slower
+than the one without.
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ from ppsim_tpu_torch.ops.cuda_grid import (
 from ppsim_tpu_torch.ops.grid3d_ops import Geometry3S, grid3_force_xla, move3_planes
 from ppsim_tpu_torch.ops.grid_ops import f32
 
-__all__ = ["grid3_step_cuda", "grid3_step_plain", "step3_plan", "slab3_shape"]
+__all__ = ["grid3_step_cuda", "grid3_step_plain", "step3_plan", "slab3_shape",
+           "new_counts"]
 
 # (x, z) tiles of K3, widest first; the plan takes the first whose block
 # leaves room for two blocks on an SM.
@@ -61,45 +71,61 @@ def step3_plan(shape) -> TilePlan:
     return TilePlan((tx, tz), seg, TILE_THREADS, tiles * -(-Y // seg), smem)
 
 
+def new_counts(device) -> torch.Tensor:
+    """Zeroed counters for ``counts``: (pairs inside the cutoff, warp
+    passes of the pair coefficient)."""
+    return torch.zeros(2, dtype=torch.int64, device=device)
+
+
 def grid3_step_plain(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
                      mass, dt, size, law="repulsive", law_params=(), y0=0,
-                     ghosts=None):
+                     ghosts=None, counts=None):
     """Plain twin of K3: ``grid3_force_xla`` with the kernels' pair
     arithmetic, then the move, returning ``(xl', yl', zl', vx', vy', vz',
     speed2)`` with ``speed2`` the (Y, X, Z) plane of per-bin max |v|^2. Slot
     aliveness comes from the position sentinel (dead slots hold exactly BIG),
     as in the kernel and the TPU kernel. With ``ghosts`` the force runs on
     the planes extended by the ghost slabs and the interior is kept (the JAX
-    package's ``_local_plain_xla``); ``y0`` enters the wall fold."""
+    package's ``_local_plain_xla``); ``y0`` enters the wall fold.
+    ``counts`` gains the step's pairs inside the cutoff (module docstring)."""
     coef_of = kernel_coef_of(law, cutoff, min_r, mass, law_params)
+    c2 = None if counts is None else pair_args(law, cutoff, min_r, mass, law_params)[1]
     if ghosts is None:
-        ax, ay, az = grid3_force_xla(xl, yl, zl, geom, coef_of)
+        force = grid3_force_xla(xl, yl, zl, geom, coef_of, c2)
     else:
         if len(ghosts) != 6:
             raise ValueError(f"expected 6 ghost planes, got {len(ghosts)}")
         ext = [torch.cat([top, f, bot], 1)
                for f, top, bot in zip((xl, yl, zl), ghosts[:3], ghosts[3:])]
-        ax, ay, az = (a[:, 1:-1] for a in grid3_force_xla(*ext, geom, coef_of))
-    *planes, speed2 = move3_planes(xl, yl, zl, vx, vy, vz, ax, ay, az,
-                                   xl < 0.5 * BIG, geom, dt, size, y0)
+        force = [a[:, 1:-1] for a in grid3_force_xla(*ext, geom, coef_of, c2)]
+    alive = xl < 0.5 * BIG
+    if counts is not None:
+        counts[0] += torch.where(alive, force[3], 0).sum()
+    *planes, speed2 = move3_planes(xl, yl, zl, vx, vy, vz, *force[:3], alive,
+                                   geom, dt, size, y0)
     return (*planes, speed2.amax(dim=0))
 
 
 def grid3_step_cuda(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
                     mass, dt, size, law="repulsive", law_params=(), y0=0,
-                    ghosts=None):
+                    ghosts=None, counts=None):
     """Fused step, same contract as :func:`grid3_step_plain`. CUDA tensors
     launch K3 (``grid3_step_cuda.launches`` counts the launches; a shard's
     inputs launch its SHARD instance); CPU tensors run the plain twin."""
     if xl.device.type == "cpu":
         return grid3_step_plain(xl, yl, zl, vx, vy, vz, geom, cutoff, min_r,
-                                mass, dt, size, law, law_params, y0, ghosts)
+                                mass, dt, size, law, law_params, y0, ghosts, counts)
     planes = (xl, yl, zl, vx, vy, vz)
     shape = slab3_shape(geom, xl)
     _check_planes(planes, shape)
     cap, Y, X, Z = shape
     if ghosts is not None:
         check_ghosts(ghosts, [(cap, 1, X, Z)] * 6, xl.device)
+    if counts is not None and (counts.device != xl.device or counts.dtype != torch.int64
+                               or counts.shape != (2,) or not counts.is_contiguous()):
+        raise ValueError("counts must be a contiguous int64 tensor of 2 on the "
+                         f"planes' device, got {counts.dtype} {tuple(counts.shape)} "
+                         f"on {counts.device}")
     if cap > MAX_CAP:
         raise ValueError(f"capacity {cap} > {MAX_CAP}, the kernel's largest")
     law_id, *consts = pair_args(law, cutoff, min_r, mass, law_params)
@@ -110,6 +136,7 @@ def grid3_step_cuda(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
     err = lib.ppsim_grid3_step(
         *(t.data_ptr() for t in planes), *_ptrs(ghosts, 6),
         *(t.data_ptr() for t in (*outs, speed2)),
+        0 if counts is None else counts.data_ptr(),
         xl.device.index, cap, Y, X, Z, int(y0), geom.xs, geom.zs, law_id, *plan.tile,
         plan.seg, plan.threads, plan.blocks, plan.smem, f32(geom.bsx), f32(geom.bsy), f32(geom.bsz), *consts,
         f32(dt), f32(size), torch.cuda.current_stream(xl.device).cuda_stream)

@@ -333,14 +333,17 @@ def _shifted3(f, dy: int, dx: int, dz: int, geom: Geometry3S, fill=BIG):
 
 
 # ------------------------------------------------------------------- force
-def grid3_force_xla(xl, yl, zl, geom: Geometry3S, coef_of):
+def grid3_force_xla(xl, yl, zl, geom: Geometry3S, coef_of, c2=None):
     """27-plane stencil force; ``coef_of(r2) -> coef`` is the force-law seam
     (``physics.coef_from_r2`` / ``lj_coef_from_r2`` partials). Sums in
     ``DIRS3`` order, then neighbour-slot order (name kept from the JAX
-    package, whose twin is an XLA graph)."""
+    package, whose twin is an XLA graph). With ``c2`` a fourth output
+    counts, per slot, its pairs with ``r2 <= c2`` (itself included; a dead
+    slot meets the dead slots of its bin too, so callers mask it out)."""
     ax = torch.zeros_like(xl)
     ay = torch.zeros_like(yl)
     az = torch.zeros_like(zl)
+    hits = None if c2 is None else torch.zeros_like(xl, dtype=torch.int32)
     for dy, dx, dz in DIRS3:
         xn_all = _shifted3(xl, dy, dx, dz, geom)
         yn_all = _shifted3(yl, dy, dx, dz, geom)
@@ -352,11 +355,14 @@ def grid3_force_xla(xl, yl, zl, geom: Geometry3S, coef_of):
             ddx = (xn_all[j:j + 1] + offx) - xl
             ddy = (yn_all[j:j + 1] + offy) - yl
             ddz = (zn_all[j:j + 1] + offz) - zl
-            coef = coef_of(ddx * ddx + ddy * ddy + ddz * ddz)
+            r2 = ddx * ddx + ddy * ddy + ddz * ddz
+            coef = coef_of(r2)
             ax = ax + coef * ddx
             ay = ay + coef * ddy
             az = az + coef * ddz
-    return ax, ay, az
+            if hits is not None:
+                hits += r2 <= c2
+    return (ax, ay, az) if hits is None else (ax, ay, az, hits)
 
 
 # -------------------------------------------------------------------- move

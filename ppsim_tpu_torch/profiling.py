@@ -25,7 +25,9 @@ of :mod:`ppsim_tpu.profiling`).
 - :class:`Counters` — what an engine did, in plain numbers, always on and
   updated once a run or a frame (``Engine.counters``); with the kernel
   library's build (``_build.kernel_builds``, ``kernel_build_s``) in
-  :meth:`Counters.record`.
+  :meth:`Counters.record`. Inside :func:`tracing` the 3D slab engines
+  count pairs in range and K3's coefficient passes on the device, folded
+  in once a run.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["ProfileWindow", "profile_steps", "phase_times", "timeit_steps", "trace",
-           "span", "tracing", "span_label", "parse_span", "Counters", "union_ms",
-           "device_intervals_ms"]
+           "span", "tracing", "spans_on", "span_label", "parse_span", "Counters",
+           "union_ms", "device_intervals_ms"]
 
 #: Whether :func:`span` records; only :func:`tracing` sets it.
 _spans_on = False
@@ -74,6 +76,12 @@ def span(name: str, args: Optional[dict] = None):
     return torch.profiler.record_function(span_label(name, args))
 
 
+def spans_on() -> bool:
+    """Whether :func:`span` records (inside :func:`tracing`); the 3D slab
+    engines count their pairs only then."""
+    return _spans_on
+
+
 @contextlib.contextmanager
 def tracing():
     """Spans on for the block, then as they were. Nothing else turns them
@@ -101,6 +109,12 @@ class Counters:
     frame_bytes_streamed: int = 0
     frame_wait_s: float = 0.0  # host blocked on a frame's copy event
     frame_host_copy_s: float = 0.0  # host copying frames into the host array
+    # The 3D step's pairs inside the cutoff (self pairs included) and, on
+    # the card, K3's warp passes of the pair coefficient, counted in steps
+    # run inside tracing(): totals of the engine's device-side counters,
+    # read once a run (Engine.result_of).
+    pair_hits: int = 0
+    coef_warp_passes: int = 0
 
     def note_rerun(self, steps_before: int) -> None:
         """A re-run follows: the steps run since ``steps_before`` (a value

@@ -16,7 +16,7 @@ __all__ = ["STRESS_GEOMETRY", "stress_slab", "STRESS_GEOMETRY3", "stress_slab3",
            "STEP_SLAB_KINDS", "step_slab", "REBIN_EDGE_GEOMETRY",
            "REBIN_EDGE_GEOMETRY3", "rebin_edge_slab", "SHARD_EDGE_GEOMETRY",
            "shard_edge_slab", "SHARD_EDGE_GEOMETRY3", "shard_edge_slab3",
-           "TILE_EDGE_GEOMETRY", "tile_edge_slab"]
+           "TILE_EDGE_GEOMETRY", "tile_edge_slab", "gas_state3", "gas_slab3"]
 
 # 13 x 100 physical bins padded to 16 x 128, capacity 4: the JAX package's
 # contention geometry (tests/test_grid_ops.py).
@@ -357,3 +357,38 @@ def shard_edge_slab3(geom: Geometry3S, shards: int, seed: int = 0,
     pid = np.full(geom.shape, -1, np.int32)
     pid[live] = rng.permutation(n).astype(np.int32)
     return slab3_state_from_numpy(*fields, pid, device=device)
+
+
+def gas_state3(cfg, seed: int = 0, device="cpu"):
+    """``cfg.num_parts`` particles placed uniformly at random in the 3D box
+    of ``cfg``, velocities U[-1, 1), from ``seed``: a gas, like the stretch
+    config's late state (at density 7e-6, ~0.6 neighbours inside the cutoff
+    a particle), as a ParticleState on ``device``."""
+    import torch
+
+    from ppsim_tpu_torch.state import ParticleState
+
+    rng = np.random.default_rng(seed)
+    n, size = cfg.num_parts, cfg.size
+    pos = rng.uniform(0.0, size, (n, 3)).astype(np.float32)
+    vel = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    return ParticleState(torch.from_numpy(pos).to(device),
+                         torch.from_numpy(vel).to(device))
+
+
+def gas_slab3(cfg, seed: int = 0, device="cpu"):
+    """``(geom, slab, pos)``: :func:`gas_state3` packed into the 3D slab of
+    ``cfg``'s geometry at the capacity its fullest bin needs, each particle
+    in its home bin, and its positions as a float64 numpy array."""
+    import dataclasses
+
+    from ppsim_tpu_torch.ops.grid3d_ops import slab3_from_particles
+
+    state = gas_state3(cfg, seed)
+    geom = Geometry3S.for_config(cfg)
+    slab, overflow = slab3_from_particles(state.pos, state.vel, geom)
+    if int(overflow):
+        geom = dataclasses.replace(geom, capacity=geom.capacity + int(overflow))
+        slab, overflow = slab3_from_particles(state.pos, state.vel, geom)
+    assert int(overflow) == 0
+    return geom, Slab3State(*(t.to(device) for t in slab)), state.pos.double().numpy()

@@ -26,7 +26,7 @@ from ppsim_tpu_torch.ops import grid3d_ops, grid_ops
 from ppsim_tpu_torch.ops.cuda_grid import (
     grid_force_cuda, grid_force_plain, grid_step_cuda, grid_step_plain,
 )
-from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
+from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain, new_counts
 from ppsim_tpu_torch.ops.cuda_rebin import (
     rebin_axes_call_cuda, rebin_axes_call_plain, rebin_counts_cuda, rebin_counts_plain,
     rebin_plan, rebin_shuffle_cuda, rebin_shuffle_plain, shuffle_plan,
@@ -40,7 +40,7 @@ from ppsim_tpu_torch.ops.cuda_rebin3 import (
 )
 from ppsim_tpu_torch.testing import (
     REBIN_EDGE_GEOMETRY, REBIN_EDGE_GEOMETRY3, STEP_SLAB_KINDS, STRESS_GEOMETRY,
-    STRESS_GEOMETRY3, rebin_edge_slab, step_slab, stress_slab, stress_slab3,
+    STRESS_GEOMETRY3, gas_slab3, rebin_edge_slab, step_slab, stress_slab, stress_slab3,
 )
 
 # K1 and K6 against their plain twins: same summation order and rounding,
@@ -71,6 +71,9 @@ LJ = dict(force_law="lj", dt=1e-4)
 TINY2 = SimConfig(num_parts=3000, grid_bin_scale=3.0, grid_capacity=6,
                   evac_capacity=2, rebin_every=4)
 EDGE3 = TINY3.with_(num_parts=472)
+# A uniform gas of 500 in 6^3 bins (testing.gas_slab3): ~0.6 neighbours inside
+# the cutoff a particle, as in the stretch config's late state.
+GAS3 = SimConfig(num_parts=500, ndim=3, density=7e-6)
 
 
 @pytest.fixture(autouse=True)
@@ -408,6 +411,34 @@ def test_step3_kernel_matches_plain_on_card(cuda, cfg, law):
     assert float((want[3] - slab.vx).abs().max()) > 0  # forces act
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["repulsive", "lj"])
+@pytest.mark.parametrize("kind", ["gas", "lattice"])
+def test_step3_kernel_counts_the_twins_pairs_on_card(cuda, kind, law):
+    """K3 counts the pairs inside the cutoff that its twin counts (its
+    face cuts drop only pairs outside it), in at least a 32nd as many warp
+    passes of the coefficient; counting changes no output. The lattice is
+    the packed n = 262,144 init slab, where the cuts drop most bins."""
+    cfg = (GAS3 if kind == "gas" else PAD3).with_(**(LJ if law == "lj" else {}))
+    if kind == "gas":
+        geom, slab, _ = gas_slab3(cfg, 5, device=cuda)
+    else:
+        geom, slab = _drifted_slab3(cfg, 0.0, 0, device=cuda)
+    args = _step3_args(cfg, geom)
+    counts, twin = new_counts(cuda), new_counts(cuda)
+    got = grid3_step_cuda(*slab[:6], *args, counts=counts)
+    want = grid3_step_plain(*slab[:6], *args, counts=twin)
+    hits, passes = counts.tolist()
+    live = int((slab.pid >= 0).sum())
+    assert hits == int(twin[0]) and int(twin[1]) == 0
+    assert hits > 1.3 * live if kind == "gas" else hits == live
+    assert 0 < passes and 32 * passes >= hits
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    for g, w in zip(got, grid3_step_cuda(*slab[:6], *args)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -28,7 +28,7 @@ from ppsim_tpu_torch.engines import get_engine
 from ppsim_tpu_torch.engines.mesh import LocalMesh
 from ppsim_tpu_torch.initlib import init_particles
 from ppsim_tpu_torch.ops.cuda_grid import grid_step_cuda, grid_step_plain
-from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain
+from ppsim_tpu_torch.ops.cuda_grid3 import grid3_step_cuda, grid3_step_plain, new_counts
 from ppsim_tpu_torch.ops.cuda_rebin3 import (
     rebin3_inplane_cuda, rebin3_inplane_plain, rebin3_ypass_cuda, rebin3_ypass_plain,
 )
@@ -37,11 +37,11 @@ from ppsim_tpu_torch.ops.cuda_rebin import (
     rebin_shuffle_cuda, rebin_shuffle_plain,
 )
 from ppsim_tpu_torch.ops.binning import BIG
-from ppsim_tpu_torch.ops.grid3d_ops import FILLS3, Geometry3S
+from ppsim_tpu_torch.ops.grid3d_ops import FILLS3, Geometry3S, Slab3State
 from ppsim_tpu_torch.ops.grid_ops import SLAB_FILLS, SlabGeometry, f32
 from ppsim_tpu_torch.testing import (
-    SHARD_EDGE_GEOMETRY, SHARD_EDGE_GEOMETRY3, TILE_EDGE_GEOMETRY, shard_edge_slab,
-    shard_edge_slab3, tile_edge_slab,
+    SHARD_EDGE_GEOMETRY, SHARD_EDGE_GEOMETRY3, TILE_EDGE_GEOMETRY, gas_state3,
+    shard_edge_slab, shard_edge_slab3, tile_edge_slab,
 )
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -228,6 +228,33 @@ def test_shard_step3_kernel_on_card(cuda, P, law):
             assert torch.allclose(g, w, rtol=RTOL, atol=ATOL), (d, k)
             rows = f[:, d * yl:(d + 1) * yl] if f.dim() == 4 else f[d * yl:(d + 1) * yl]
             _equal(f"K3 shard {d} output {k} vs single device", g, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("law", ["repulsive", "lj"])
+def test_shard_step3_kernel_counts_pairs_on_card(cuda, P, law):
+    """K3's SHARD instance counts each strip's own pairs inside the cutoff,
+    those across a boundary included: over the strips, the single-device
+    kernel's count and the twin's with the same ghosts."""
+    cfg = SimConfig(num_parts=500, ndim=3, density=7e-6, grid3_spill=False)
+    cfg = cfg.with_(force_law="lj", dt=1e-4) if law == "lj" else cfg
+    eng = get_engine("sharded_grid3d", cfg, device="cpu", shards=P)
+    carry = eng.init_carry(gas_state3(cfg, 6))
+    shards = [Slab3State(*(t.to(cuda) for t in s)) for s in carry.slab]
+    whole = eng.full_slab(carry)
+    geom, yl = eng.geom, eng.ys_local
+    args = (geom, cfg.cutoff, cfg.min_r, cfg.mass, cfg.dt, cfg.size, law, cfg.law_params)
+    single = new_counts(cuda)
+    grid3_step_cuda(*(t.to(cuda) for t in whole[:6]), *args, counts=single)
+    halos = [LocalMesh(P, cuda).halo([s[k] for s in shards], BIG, 1, 1) for k in range(3)]
+    counts, twin = new_counts(cuda), new_counts(cuda)
+    for d, s in enumerate(shards):
+        ghosts = tuple(h[d][0] for h in halos) + tuple(h[d][1] for h in halos)
+        grid3_step_cuda(*s[:6], *args, y0=d * yl, ghosts=ghosts, counts=counts)
+        grid3_step_plain(*s[:6], *args, y0=d * yl, ghosts=ghosts, counts=twin)
+    assert int(counts[0]) == int(single[0]) == int(twin[0]) > 500
+    assert 32 * int(counts[1]) >= int(counts[0])
 
 
 @pytest.mark.cuda
