@@ -60,22 +60,22 @@
 //
 // Deferred pairs. The walk over the kept bins only tests r2 <= c2: a pair
 // that passes is queued as its (direction, compacted slot), 10 bits in a
-// 64-bit register, up to kQueue of them. When the walk ends, or the queue
-// is full, the thread drains it oldest first: it recomputes each pair's
-// offsets and r2 with the same rounded ops (the same bits), evaluates the
-// coefficient and adds the force. So each particle adds the same terms in
-// the same order as when every hit was evaluated in place, and the outputs
-// are bitwise those of evaluating each hit where the walk meets it. The
-// coefficient is a branch that a warp runs whenever one of its lanes needs
-// it: evaluated in place, a warp ran it at most kept bins that held a lane's
-// own particle (each particle meets itself) or a neighbour in range, with
-// one or two lanes busy; drained, it runs as many times as the lane with the
-// most hits has pairs. Given a counter pair, the kernel counts the pairs
-// inside the cutoff (self pairs included) and the warp passes of the
-// coefficient: a register each per thread, an atomic add each per warp at
-// the end. It counts in an instance of its own (COUNT), since counting
-// costs ~1% of a call; a call without counters launches the one that does
-// not count.
+// 64-bit register, up to kQueue of them. When the walk ends, or stops at a
+// full queue (to resume after), the thread drains the queue oldest first:
+// it recomputes each pair's offsets and r2 with the walk's rounded ops (the
+// same bits), evaluates the coefficient and adds the force. Each particle
+// adds the same terms in the same order, so the outputs are bitwise those of
+// evaluating each hit where the walk meets it. The coefficient is a branch
+// that a warp runs whenever one of its lanes needs it: evaluated in place, a
+// warp ran it at most kept bins that held a lane's own particle (each
+// particle meets itself) or a neighbour in range, with one or two lanes
+// busy; drained, it runs as many times as the lane with the most hits has
+// pairs. Given a counter pair, the kernel counts the pairs inside the cutoff
+// (self pairs included) and the warp passes of the coefficient: a register
+// each per thread, an atomic add each per warp at the end. It counts in an
+// instance of its own (COUNT), since counting costs time (~1% of an LJ call;
+// the repulsive counting instance, held to 2 blocks an SM below, ~12%); a
+// call without counters launches the one that does not count.
 //
 // Shards (the sharded engine, ops/cuda_grid3.py). A shard's planes are y
 // slabs y0 .. y0 + Y - 1 of the global slab; y0 enters the wall fold, and

@@ -22,7 +22,7 @@ Inside ``profiling.tracing()`` each engine counts, on the device, the pairs
 inside the cutoff of every step and, where K3 runs, K3's warp passes of the
 pair coefficient (``pair_counts``; ``ops/cuda_grid3.py``), and folds the
 totals into ``counters.pair_hits`` and ``counters.coef_warp_passes`` once a
-run. Outside it nothing counts: K3's counting instance costs ~1% of a call.
+run. Outside it nothing counts: K3's counting instance is slower.
 """
 
 from __future__ import annotations

@@ -24,8 +24,8 @@ live own particle with every live slot within the cutoff in its 27 bins,
 itself included), its second the kernel's warp passes of the pair
 coefficient, which the plain twin leaves as it is. K3 tests every pair it
 does not cut, and cuts only pairs outside the cutoff, so both count the
-same pairs. With ``counts`` K3 launches its counting instance, ~1% slower
-than the one without.
+same pairs. With ``counts`` K3 launches its counting instance, which is
+slower than the one without (~1% with LJ, ~12% with the repulsive law).
 """
 
 from __future__ import annotations

@@ -3,6 +3,7 @@ seed, so that every device and both packages see identical data)."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -378,10 +379,8 @@ def gas_state3(cfg, seed: int = 0, device="cpu"):
 
 def gas_slab3(cfg, seed: int = 0, device="cpu"):
     """``(geom, slab, pos)``: :func:`gas_state3` packed into the 3D slab of
-    ``cfg``'s geometry at the capacity its fullest bin needs, each particle
-    in its home bin, and its positions as a float64 numpy array."""
-    import dataclasses
-
+    ``cfg``'s geometry, raised to a capacity that holds every particle in its
+    home bin, and its positions as a float64 numpy array."""
     from ppsim_tpu_torch.ops.grid3d_ops import slab3_from_particles
 
     state = gas_state3(cfg, seed)
