@@ -18,10 +18,10 @@ at that packing capacity and then repack the slab down to the run capacity
 (``repack_plan`` / ``attempt_repack`` / ``commit_repack``): on by default for
 the repulsive law, off for LJ, whose run outgrows its packing.
 
-Inside ``profiling.tracing()`` each engine counts, on the device, the pairs
-inside the cutoff of every step and, where K3 runs, K3's warp passes of the
-pair coefficient (``pair_counts``; ``ops/cuda_grid3.py``), and folds the
-totals into ``counters.pair_hits`` and ``counters.coef_warp_passes`` once a
+Inside ``profiling.tracing()`` K3 (or, on the CPU, its plain twin) counts
+the pairs inside the cutoff of every step and K3's warp passes of the pair
+coefficient into ``pair_counts`` (``ops/cuda_grid3.py``), which the engine
+folds into ``counters.pair_hits`` and ``counters.coef_warp_passes`` once a
 run. Outside it nothing counts: K3's counting instance is slower.
 """
 
@@ -37,7 +37,6 @@ from ppsim_tpu_torch import profiling
 from ppsim_tpu_torch.engines.base import Engine, register_engine
 from ppsim_tpu_torch.engines.grid import GridCarry, GridEngine, seed_pack_monitors
 from ppsim_tpu_torch.ops import grid3d_ops
-from ppsim_tpu_torch.ops.cuda_grid import pair_args
 from ppsim_tpu_torch.ops.cuda_grid3 import new_counts
 from ppsim_tpu_torch.ops.grid3d_ops import Geometry3S, Slab3State
 from ppsim_tpu_torch.state import ParticleState
@@ -122,32 +121,16 @@ class Grid3DEngine(GridEngine):
         c.pair_hits, c.coef_warp_passes = self.pair_counts.tolist()
 
     def step_counts(self):
-        """``pair_counts`` inside ``profiling.tracing()``, where the steps
-        count; None outside it."""
+        """``pair_counts`` for K3's wrapper inside ``profiling.tracing()``,
+        where the steps count; None outside it."""
         return self.pair_counts if profiling.spans_on() else None
-
-    def hit_c2(self):
-        """The cutoff^2 that K3 tests against, for ``grid3_force_xla``'s
-        count, inside ``profiling.tracing()``; None outside it."""
-        if not profiling.spans_on():
-            return None
-        cfg = self.config
-        return pair_args(cfg.force_law, cfg.cutoff, cfg.min_r, cfg.mass,
-                         cfg.law_params)[1]
-
-    def count_hits(self, force, alive) -> None:
-        """Add the live slots' pairs inside the cutoff (``force[3]``, where
-        ``grid3_force_xla`` had ``hit_c2()``) to ``pair_counts``."""
-        if len(force) == 4:
-            self.pair_counts[0] += torch.where(alive, force[3], 0).sum()
 
     # ---- phases (the cuda3d engine overrides these two) --------------------
     def move_phase(self, slab: Slab3State):
         cfg = self.config
-        force = grid3d_ops.grid3_force_xla(slab.xl, slab.yl, slab.zl, self.geom,
-                                           _coef_of(cfg), self.hit_c2())
-        self.count_hits(force, slab.pid >= 0)
-        return grid3d_ops.grid3_move(slab, force[:3], self.geom, cfg.dt, cfg.size)
+        accel = grid3d_ops.grid3_force_xla(slab.xl, slab.yl, slab.zl,
+                                           self.geom, _coef_of(cfg))
+        return grid3d_ops.grid3_move(slab, accel, self.geom, cfg.dt, cfg.size)
 
     def rebin_of(self, slab: Slab3State):
         return grid3d_ops.grid3_rebin_axes(slab, self.geom,

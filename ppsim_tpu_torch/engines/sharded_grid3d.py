@@ -98,13 +98,12 @@ class ShardedGrid3DEngine(Grid3DEngine):
         for i, (s, d) in enumerate(zip(shards, mesh.shards)):
             (tx, bx), (ty, by), (tz, bz) = gx[i], gy[i], gz[i]
             if self.impl == "plain":
-                force = [a[:, 1:-1] for a in grid3d_ops.grid3_force_xla(
+                ax, ay, az = grid3d_ops.grid3_force_xla(
                     torch.cat([tx, s.xl, bx], 1), torch.cat([ty, s.yl, by], 1),
-                    torch.cat([tz, s.zl, bz], 1), geom, _coef_of(cfg),
-                    self.hit_c2())]
-                self.count_hits(force, s.pid >= 0)
-                new, ms = grid3d_ops.grid3_move(s, force[:3], geom, cfg.dt,
-                                                cfg.size, y0=self.y0(d))
+                    torch.cat([tz, s.zl, bz], 1), geom, _coef_of(cfg))
+                new, ms = grid3d_ops.grid3_move(
+                    s, (ax[:, 1:-1], ay[:, 1:-1], az[:, 1:-1]), geom, cfg.dt,
+                    cfg.size, y0=self.y0(d))
                 out.append(new)
                 speed.append(ms)
             else:

@@ -25,8 +25,8 @@ of :mod:`ppsim_tpu.profiling`).
 - :class:`Counters` — what an engine did, in plain numbers, always on and
   updated once a run or a frame (``Engine.counters``); with the kernel
   library's build (``_build.kernel_builds``, ``kernel_build_s``) in
-  :meth:`Counters.record`. Inside :func:`tracing` the 3D slab engines
-  count pairs in range and K3's coefficient passes on the device, folded
+  :meth:`Counters.record`. Inside :func:`tracing` the engines that run
+  K3 count pairs in range and its coefficient passes on the device, folded
   in once a run.
 """
 
@@ -77,8 +77,8 @@ def span(name: str, args: Optional[dict] = None):
 
 
 def spans_on() -> bool:
-    """Whether :func:`span` records (inside :func:`tracing`); the 3D slab
-    engines count their pairs only then."""
+    """Whether :func:`span` records (inside :func:`tracing`); the engines
+    that run K3 count its pairs only then."""
     return _spans_on
 
 
@@ -110,9 +110,9 @@ class Counters:
     frame_wait_s: float = 0.0  # host blocked on a frame's copy event
     frame_host_copy_s: float = 0.0  # host copying frames into the host array
     # The 3D step's pairs inside the cutoff (self pairs included) and, on
-    # the card, K3's warp passes of the pair coefficient, counted in steps
-    # run inside tracing(): totals of the engine's device-side counters,
-    # read once a run (Engine.result_of).
+    # the card, K3's warp passes of the pair coefficient, counted by K3 or
+    # its twin (cuda3d, sharded_grid3d) in steps run inside tracing():
+    # totals of the engine's device-side counters, read once a run.
     pair_hits: int = 0
     coef_warp_passes: int = 0
 
