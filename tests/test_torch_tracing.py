@@ -30,6 +30,16 @@ RUNS = {  # engine, config, nsteps, savefreq
 }
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The engines run many small ops: under the suite's parallel workers,
+    torch's intra-op threads would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _engine_and_state(case):
     name, cfg, _, _ = RUNS[case]
     cfg = SimConfig(**cfg)
