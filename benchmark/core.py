@@ -8,22 +8,33 @@ frame is in host memory. The window ends at the first simulation end after
 ``seconds``. The first simulation of the window saves at the mix's
 ``check_savefreq`` and is the one compared with the reference once the
 window has closed; the others save at ``savefreq``.
+
+On several ranks (``benchmark/ranks.py``) every rank runs every engine call
+of the run in the same order: the set-up, each simulation of the window,
+the traced extras and the readers' own simulation. The seeded state is made
+on every rank and checked equal; a barrier starts the window; a simulation
+ends on rank 0's clock once every card is done, and rank 0 decides for all
+when the window ends. Failures, set-up seconds and memory peaks are the
+max over the ranks; rank 0 compares its gathered outputs and prints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import statistics
 import subprocess
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from benchmark import check, spec
 from benchmark.initstate import lattice_state
+from benchmark.ranks import Ranks
 from benchmark.reference import Physics
 from benchmark.trace import TraceWindow
 
@@ -62,8 +73,11 @@ class Run:
     setup_s: float
     window_start: float
     sims: List[Sim]
-    window_peak_bytes: int
-    traced: Optional[Traced] = None
+    window_peak_bytes: int  # the fullest card's
+    traced: Optional[Traced] = None  # rank 0's
+    #: each rank's (busy_s, wall_s) of its traced simulation, None where
+    #: its trace holds no device activity
+    traced_ranks: Optional[List[Optional[Tuple[float, float]]]] = None
 
     @property
     def n(self) -> int:
@@ -195,7 +209,8 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     ``result`` the dict of the run's last line. ``t_start`` is the process's
     start on ``time.time()``'s clock. ``program``, if given, is called with
     the engine before the window (the fault tests break the timed path
-    with it)."""
+    with it). Under a process group of several ranks every rank calls it
+    (``benchmark/ranks.py``), and each returns rank 0's verdict."""
     bench = spec.load_benchmark(root)
     cell = spec.find_cell(bench, cell_name)
     config = spec.load_config(cell["config"], bench_dir)
@@ -204,10 +219,12 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    ranks = Ranks(dev)
     from ppsim_tpu_torch.state import ParticleState
 
     sim = config["sim"]
     pos0, vel0 = lattice_state(sim["num_parts"], sim["ndim"], phys.size, seed, dev)
+    ranks.check_same(pos0, vel0)
     state = ParticleState(pos0, vel0)
     engine = _engine(config, dev)
     if program is not None:
@@ -219,6 +236,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     setup_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    ranks.barrier()
     window_start = time.perf_counter()
     setup_s = time.time() - t_start
     sims: List[Sim] = []
@@ -229,6 +247,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
         s0 = time.perf_counter()
         result = engine.run(state, mix["nsteps"], sf)
         _sync(dev)
+        ranks.all_done()
         s1 = time.perf_counter()
         sims.append(Sim(s0, s1, _failed(engine, result)))
         warning = _warning(engine, result)
@@ -237,19 +256,31 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
         if checked is None:
             checked = (result.state, result.frames)
         result = None
-        if s1 - window_start >= seconds:
+        if ranks.agree(s1 - window_start >= seconds):
             break
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    print("simulations (s): " + " ".join(f"{s.seconds:.4f}" for s in sims),
-          file=sys.stderr)
-    for text in sorted(set(warnings)):
-        print(f"monitors of {warnings.count(text)} simulation(s): {text}", file=sys.stderr)
+    if ranks.many:
+        for s, failed in zip(sims, ranks.max([s.failed for s in sims])):
+            s.failed = bool(failed)
+        setup_s, setup_peak, peak = ranks.max([setup_s, setup_peak, peak])
+        setup_peak, peak = int(setup_peak), int(peak)
+        if not ranks.lead:
+            checked = None
+    if ranks.lead:
+        print("simulations (s): " + " ".join(f"{s.seconds:.4f}" for s in sims),
+              file=sys.stderr)
+        for text in sorted(set(warnings)):
+            print(f"monitors of {warnings.count(text)} simulation(s): {text}",
+                  file=sys.stderr)
 
     run = Run(config, mix, torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
               setup_s, window_start, sims, peak)
     if trace:
         run.traced = _traced_extras(engine, state, mix, dev)
-    if dev.type == "cuda":
+        sim_t = run.traced.sim
+        mine = [-1.0, -1.0] if sim_t is None else [sim_t.busy_s, sim_t.wall_s]
+        run.traced_ranks = [(b, w) if w >= 0 else None for b, w in ranks.gather(mine)]
+    if dev.type == "cuda" and ranks.lead:
         print(card_line(), file=sys.stderr)
 
     # ---- the comparison, with the program's state freed
@@ -257,21 +288,27 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    final, frames = checked
-    t_check = time.perf_counter()
-    numbers = check.compare(phys, pos0, vel0, frames,
-                            check.frame_steps(mix["nsteps"], mix["check_savefreq"]),
-                            final.pos, final.vel, mix["nsteps"], dev)
-    print(f"comparison: {time.perf_counter() - t_check:.3f} s", file=sys.stderr)
+    ranks.barrier()
+    numbers = None
+    if ranks.lead:
+        final, frames = checked
+        t_check = time.perf_counter()
+        numbers = check.compare(phys, pos0, vel0, frames,
+                                check.frame_steps(mix["nsteps"], mix["check_savefreq"]),
+                                final.pos, final.vel, mix["nsteps"], dev)
+        print(f"comparison: {time.perf_counter() - t_check:.3f} s", file=sys.stderr)
+    numbers = ranks.from_lead(numbers)
     limits = config["limits"]
     failed = sum(s.failed for s in sims)
     correct = check.verdict(numbers, limits) and failed == 0
 
     metrics: Dict[str, dict] = {}
-    for m in spec.metrics_for(bench, cell_name, trace):
-        value = spec.load_reader(m["name"], bench_dir)(run)
-        if value is not None:
-            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    # every rank reads (spans.measure's simulation runs on all); rank 0 prints
+    with contextlib.nullcontext() if ranks.lead else contextlib.redirect_stderr(io.StringIO()):
+        for m in spec.metrics_for(bench, cell_name, trace):
+            value = spec.load_reader(m["name"], bench_dir)(run)
+            if value is not None:
+                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     out = {
         "correct": bool(correct),
         "attempted": len(sims),
@@ -280,7 +317,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
         "device": {
             "platform": "gpu" if dev.type == "cuda" else "cpu",
             "kind": run.device_name,
-            "count": 1,
+            "count": ranks.world,
             "memory_peak_bytes": max(setup_peak, peak),
         },
     }

@@ -8,7 +8,9 @@ with ``--trace 1`` also ``breakdown``, and last ``checks``: each number
 compared with its limit); the last lines of standard error are the same
 numbers. Without a CUDA card, or with fewer cards than the cell asks for,
 it exits 2 and prints no result; it exits 3 if a module of the JAX stack
-or of the JAX package was loaded.
+or of the JAX package was loaded. A cell on several cards runs one worker
+process a card (``ranks.py``); if one fails, it exits 1 and prints no
+result.
 """
 
 import time
@@ -16,7 +18,6 @@ import time
 T_START = time.time()
 
 import argparse  # noqa: E402
-import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 
@@ -39,7 +40,7 @@ def main(argv=None) -> int:
     args = parse(argv)
     import torch
 
-    from benchmark import core, spec
+    from benchmark import core, ranks, spec
 
     cell = spec.find_cell(spec.load_benchmark(ROOT), args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
@@ -47,17 +48,12 @@ def main(argv=None) -> int:
               f"torch.cuda.is_available() is {torch.cuda.is_available()}",
               file=sys.stderr)
         return 2
+    if cell["chips"] > 1:
+        return ranks.launch(ranks.Job(args.workload, args.seed, args.seconds,
+                                      bool(args.trace), T_START, root=ROOT), cell["chips"])
     result, lines = core.run_cell(args.workload, args.seed, args.seconds,
                                   bool(args.trace), T_START, root=ROOT)
-    loaded = spec.forbidden_modules(sys.modules)
-    if loaded:
-        print(f"no result: forbidden modules loaded: {loaded}", file=sys.stderr)
-        return 3
-    for line in lines:
-        print(line, file=sys.stderr)
-    sys.stderr.flush()
-    print(json.dumps(result))
-    return 0
+    return ranks.emit([(result, lines)])
 
 
 if __name__ == "__main__":

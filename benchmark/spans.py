@@ -9,7 +9,9 @@ then one ``Engine.run`` at the mix's ``savefreq`` with the program's spans
 on (``ppsim_tpu_torch.profiling.tracing``) under ``torch.profiler`` (CPU and
 CUDA). The window and the traced simulation of ``core`` run with the spans
 off, so nothing they read changes. A program without spans or counters
-gives nothing to read: :func:`measure` returns None at once.
+gives nothing to read: :func:`measure` returns None at once. On several
+ranks (``ranks.py``) every rank makes this simulation, since the engine's
+mesh spans them, and rank 0 reports it.
 
 From the profiler's events (:func:`events_of`):
 
@@ -299,6 +301,7 @@ def _measure(run) -> Optional[Measured]:
 
     from benchmark import core
     from benchmark.initstate import lattice_state
+    from benchmark.ranks import Ranks
     from benchmark.reference import Physics
 
     if not hasattr(profiling, "tracing") or not hasattr(profiling, "Counters"):
@@ -323,5 +326,6 @@ def _measure(run) -> Optional[Measured]:
     del prof, engine, state, pos, vel
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    measured.report()
+    if Ranks(dev).lead:  # every rank makes the simulation; rank 0 reports it
+        measured.report()
     return measured

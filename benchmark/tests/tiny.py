@@ -8,10 +8,15 @@ import shutil
 from benchmark import spec
 
 #: The 2D and 3D configurations at a size the CPU runs in seconds; the
-#: physics of hw2_2d_16m and lj3d_20m.
+#: physics of hw2_2d_16m and lj3d_20m. ``tiny2d_sharded`` is tiny2d's physics
+#: on the row-strip engine, at an n whose 29 bin rows put particles in each
+#: of 4 strips (``ranks.py`` runs it on one rank a strip).
 TINY = {
     "tiny2d": {"engine": "cuda", "sim": {
         "num_parts": 300, "ndim": 2, "force_law": "repulsive", "density": 0.0005,
+        "mass": 0.01, "cutoff": 0.01, "dt": 0.0005, "dtype": "float32"}},
+    "tiny2d_sharded": {"engine": "sharded_grid", "sim": {
+        "num_parts": 4000, "ndim": 2, "force_law": "repulsive", "density": 0.0005,
         "mass": 0.01, "cutoff": 0.01, "dt": 0.0005, "dtype": "float32"}},
     "tiny3d": {"engine": "cuda3d", "sim": {
         "num_parts": 400, "ndim": 3, "force_law": "lj", "lj_epsilon": 0.0001,
