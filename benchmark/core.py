@@ -283,19 +283,26 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     if dev.type == "cuda" and ranks.lead:
         print(card_line(), file=sys.stderr)
 
-    # ---- the comparison, with the program's state freed
-    del engine
+    # ---- the comparison, with the program's state freed and rank 0's inputs
+    # in host memory (check.compare moves each to the card as it compares it),
+    # so that the reference has the card
+    del engine, state
+    if ranks.lead:
+        final, frames = checked
+        inputs = [x.cpu() for x in (pos0, vel0, final.pos, final.vel)]
+        del final
+    del checked, pos0, vel0
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     ranks.barrier()
     numbers = None
     if ranks.lead:
-        final, frames = checked
+        pos0, vel0, final_pos, final_vel = inputs
         t_check = time.perf_counter()
         numbers = check.compare(phys, pos0, vel0, frames,
                                 check.frame_steps(mix["nsteps"], mix["check_savefreq"]),
-                                final.pos, final.vel, mix["nsteps"], dev)
+                                final_pos, final_vel, mix["nsteps"], dev)
         print(f"comparison: {time.perf_counter() - t_check:.3f} s", file=sys.stderr)
     numbers = ranks.from_lead(numbers)
     limits = config["limits"]

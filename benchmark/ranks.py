@@ -9,9 +9,12 @@ The launcher spawns one worker a card on this host
 / ``MASTER_PORT`` a free port on 127.0.0.1. A worker sits on
 ``cuda:LOCAL_RANK``, starts the process group (NCCL on cards, gloo on the
 CPU) before the engine, so that the program's ``DistMesh.from_env`` reuses
-it, and runs the cell with the command's arguments (spawned workers get
-the command's ``sys.argv``, whose ``--seed`` ``spans.measure`` reads) and
-the command's start, from which ``setup_s`` counts. Each worker hands its
+it, with the launcher's limit as the group's timeout (a collective may
+wait as long as the run may last: at a size that fills four cards rank 0's
+comparison takes minutes while the others wait for its numbers), and runs
+the cell with the command's arguments (spawned workers get the command's
+``sys.argv``, whose ``--seed`` ``spans.measure`` reads) and the command's
+start, from which ``setup_s`` counts. Each worker hands its
 result to the launcher, which prints rank 0's as the command's result once
 every worker has exited 0. When a worker exits otherwise, the launcher
 stops the others and prints no result; it waits at most ``LIMIT_S``
@@ -27,6 +30,7 @@ so a one-card run makes the calls it made before.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import os
 import socket
@@ -155,19 +159,21 @@ class RankError(RuntimeError):
     """A worker failed or sent nothing, or the time limit passed."""
 
 
-def _worker(rank: int, world: int, port: int, job: Job, results) -> None:
+def _worker(rank: int, world: int, port: int, job: Job, results, limit_s: float) -> None:
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     from benchmark import core
 
+    timeout = datetime.timedelta(seconds=limit_s)
     if job.device == "cuda":
         dev = torch.device("cuda", rank)
         torch.cuda.set_device(dev)
-        dist.init_process_group("nccl", rank=rank, world_size=world, device_id=dev)
+        dist.init_process_group("nccl", rank=rank, world_size=world, device_id=dev,
+                                timeout=timeout)
     else:
         dev = torch.device("cpu")
         torch.set_num_threads(1)  # the ranks share the host's cores
-        dist.init_process_group("gloo", rank=rank, world_size=world)
+        dist.init_process_group("gloo", rank=rank, world_size=world, timeout=timeout)
     out, lines = core.run_cell(job.cell, job.seed, job.seconds, job.trace, job.t_start,
                                device=dev, root=job.root, bench_dir=job.bench_dir,
                                program=job.program)
@@ -204,7 +210,7 @@ def run_ranks(job: Job, world: int, limit_s: float = LIMIT_S) -> List[Result]:
     import torch.multiprocessing as tmp
 
     results = tmp.get_context("spawn").SimpleQueue()
-    procs = tmp.start_processes(_worker, args=(world, _free_port(), job, results),
+    procs = tmp.start_processes(_worker, args=(world, _free_port(), job, results, limit_s),
                                 nprocs=world, join=False, start_method="spawn")
     got = {}
     try:

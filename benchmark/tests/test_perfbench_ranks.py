@@ -4,6 +4,7 @@ a rank with a broken timed path makes it incorrect; a worker that dies or
 hangs ends the command with no result; a one-card run starts no process
 group. On cards, the same cell over NCCL (marked ``cuda``)."""
 
+import datetime
 import json
 import subprocess
 import sys
@@ -115,6 +116,40 @@ def test_failed_worker_ends_the_command_with_no_result(tree, program, limit):
     assert proc.stdout.strip() == ""
     assert "no result" in proc.stderr
     assert took < END_S, took
+
+
+class _Started(Exception):
+    pass
+
+
+@pytest.mark.parametrize("device,backend", [("cpu", "gloo"), ("cuda", "nccl")])
+def test_worker_group_times_out_at_the_launchers_limit(monkeypatch, tree, device, backend):
+    """The launcher hands its limit to each worker, which starts its process
+    group with that timeout: the launcher's limit is the only clock (NCCL's
+    own default would end a collective after 10 minutes)."""
+    import torch.multiprocessing as tmp
+
+    launched, started = {}, {}
+
+    def start_processes(fn, args, **kwargs):
+        launched.update(fn=fn, args=args)
+        raise _Started
+
+    def init_process_group(backend, **kwargs):
+        started.update(kwargs, backend=backend)
+        raise _Started
+
+    monkeypatch.setattr(tmp, "start_processes", start_processes)
+    monkeypatch.setattr(torch.distributed, "init_process_group", init_process_group)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: None)
+    for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.setenv(key, "")  # restored after the worker sets them
+    with pytest.raises(_Started):
+        ranks.run_ranks(_job(tree, device=device), 2, limit_s=777.5)
+    with pytest.raises(_Started):
+        launched["fn"](0, *launched["args"])
+    assert started["backend"] == backend and started["world_size"] == 2
+    assert started["timeout"] == datetime.timedelta(seconds=777.5)
 
 
 def test_one_card_run_starts_no_process_group(tree):

@@ -1,7 +1,10 @@
 """The plain reference on tiny states, against an all-pairs sum written
-here, and its reverse step."""
+here, and its reverse step; its cell list against the dense enumeration
+it replaced, kept here as the oracle."""
 
+import itertools
 import math
+import time
 
 import pytest
 import torch
@@ -118,3 +121,146 @@ def test_pairs_in_small_batches_give_the_same_forces(monkeypatch):
     # a lower precision piles particles onto one point: still every pair
     heap = torch.full((50, 2), 0.25, dtype=torch.float64)
     assert _close_pairs(heap, phys) == 50 * 49
+
+
+def _dense_pairs(pos, phys):
+    """The cell list as it was: dense tables of a count and a start for
+    every cell of the box, occupied or not."""
+    n, ndim = pos.shape
+    dev = pos.device
+    nc = max(1, int(math.floor(phys.size / phys.cutoff)))
+    side = phys.size / nc
+    cell = torch.clamp(torch.floor(pos.to(torch.float64) / side).long(), 0, nc - 1)
+    stride = torch.tensor([nc ** k for k in range(ndim)], device=dev)
+    flat = (cell * stride).sum(1)
+    order = torch.argsort(flat)
+    counts = torch.bincount(flat, minlength=nc ** ndim)
+    starts = torch.cumsum(counts, 0) - counts
+    for off in itertools.product((-1, 0, 1), repeat=ndim):
+        nb = cell + torch.tensor(off, device=dev)
+        inside = ((nb >= 0) & (nb < nc)).all(1)
+        nflat = torch.where(inside, (nb.clamp(0, nc - 1) * stride).sum(1), 0)
+        cnt = torch.where(inside, counts[nflat], 0)
+        ends = torch.cumsum(cnt, 0)
+        lo = 0
+        while lo < n:
+            base = int(ends[lo - 1]) if lo else 0
+            hi = max(lo + 1, int(torch.searchsorted(ends, base + reference.MAX_PAIRS,
+                                                    right=True)))
+            c = cnt[lo:hi]
+            size = int(ends[hi - 1]) - base
+            if size:
+                i = torch.repeat_interleave(torch.arange(lo, hi, device=dev), c,
+                                            output_size=size)
+                k = torch.arange(size, device=dev) - (torch.cumsum(c, 0) - c)[i - lo]
+                j = order[starts[nflat[i]] + k]
+                keep = j != i
+                yield i[keep], j[keep]
+            lo = hi
+
+
+def _dense_accel(pos, phys):
+    acc = torch.zeros_like(pos)
+    for i, j in _dense_pairs(pos, phys):
+        d = pos[j] - pos[i]
+        coef = reference._coef((d * d).sum(1), phys)
+        acc.index_add_(0, i, coef[:, None] * d)
+    return acc
+
+
+def _states(ndim):
+    """Uniform, the seeded lattice squeezed so that neighbours are in range,
+    a lower precision's heap on one point, and rows on the box's faces and
+    corners (the cells at the edge of each axis)."""
+    pos, phys = _crowded(ndim)
+    lattice, _ = lattice_state(SIMS[ndim]["num_parts"], ndim, phys.size, 6, "cpu")
+    heap = torch.full((50, ndim), 0.25, dtype=torch.float64)
+    g = torch.Generator().manual_seed(4)
+    edge = torch.rand((200, ndim), generator=g, dtype=torch.float64) * phys.size
+    edge[::2, 0] = 0.0
+    edge[1::3, -1] = phys.size
+    return phys, {"uniform": pos, "lattice": lattice.to(torch.float64) * 0.4,
+                  "lattice32": lattice, "heap": heap, "edge": edge}
+
+
+@pytest.mark.parametrize("max_pairs", [7, reference.MAX_PAIRS])
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_pairs_are_the_dense_enumeration_in_its_order(monkeypatch, ndim, max_pairs):
+    monkeypatch.setattr(reference, "MAX_PAIRS", max_pairs)
+    phys, states = _states(ndim)
+    for name, pos in states.items():
+        got = list(reference._pairs(pos, phys))
+        want = list(_dense_pairs(pos, phys))
+        assert len(got) == len(want), name
+        for (i, j), (oi, oj) in zip(got, want):
+            assert torch.equal(i, oi) and torch.equal(j, oj), name
+        assert torch.equal(reference.accel(pos, phys), _dense_accel(pos, phys)), name
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_steps_are_bitwise_the_out_of_place_steps(ndim):
+    """The in-place fold and steps against the out-of-place forms they
+    replaced, in float64 and in the control's bfloat16, walls crossed."""
+    def fold(x, v, size):
+        m = torch.remainder(x, 2.0 * size)
+        return size - torch.abs(m - size), torch.where(m > size, -v, v)
+
+    phys = Physics.of(SIMS[ndim])
+    pos, _ = _crowded(ndim)
+    g = torch.Generator().manual_seed(8)
+    vel = (torch.rand(pos.shape, generator=g, dtype=torch.float64) * 2 - 1) * 40
+    for dtype in (torch.float64, torch.bfloat16):
+        p, v = pos.to(dtype), vel.to(dtype)
+        p0, v0 = p.clone(), v.clone()
+        vf = v + reference.accel(p, phys) * phys.dt
+        want = fold(p + vf * phys.dt, vf, phys.size)
+        got = reference.forward_step(p, v, phys)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        pr, vr = fold(p - v * phys.dt, v, phys.size)
+        want = (pr, vr - reference.accel(pr, phys) * phys.dt)
+        got = reference.reverse_step(p, v, phys)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(p, p0) and torch.equal(v, v0)  # the inputs are left as they were
+        assert (fold(p + vf * phys.dt, vf, phys.size)[1] != vf).any()  # walls crossed
+
+
+def test_box_of_a_trillion_cells():
+    """Size 10, cutoff 0.001: 10^12 cells, where a dense table of them cannot
+    be allocated. 500 pairs a little apart, some across a cell face. Timed
+    on one torch thread, so that test workers sharing the host's cores do
+    not slow it."""
+    phys = Physics(ndim=3, size=10.0, cutoff=0.001, min_r=1e-5, mass=0.01, dt=1e-4,
+                   law="lj", epsilon=1e-4, sigma=7e-4)
+    g = torch.Generator().manual_seed(12)
+    centre = torch.rand((500, 3), generator=g, dtype=torch.float64) * 9.99
+    pos = torch.cat([centre, centre + (torch.rand((500, 3), generator=g,
+                                                  dtype=torch.float64) - 0.5) * 1.2e-3])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        acc = reference.accel(pos, phys)
+        assert time.perf_counter() - t0 < 1.0
+    finally:
+        torch.set_num_threads(threads)
+    ref = _all_pairs(pos, phys)
+    assert (ref != 0).any(1).sum() > 100
+    torch.testing.assert_close(acc, ref, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_pairs_on_the_card_are_the_dense_enumeration(cuda_card, ndim):
+    """The card's sort, unique and binary search give the same pairs in the
+    same order (its accelerations differ by the order of index_add_'s
+    atomic sums only)."""
+    n = 200_000
+    phys = Physics.of(dict(SIMS[ndim], num_parts=n))
+    g = torch.Generator(device=cuda_card).manual_seed(10)
+    pos = torch.rand((n, ndim), generator=g, device=cuda_card, dtype=torch.float64) * phys.size
+    got, want = list(reference._pairs(pos, phys)), list(_dense_pairs(pos, phys))
+    assert len(got) == len(want)
+    for (i, j), (oi, oj) in zip(got, want):
+        assert torch.equal(i, oi) and torch.equal(j, oj)
+    torch.testing.assert_close(reference.accel(pos, phys), _dense_accel(pos, phys),
+                               rtol=1e-12, atol=1e-9)
