@@ -58,24 +58,45 @@
 // length, the block size and the shared-memory bytes come from the Python
 // plan (cuda_grid3.step3_plan), which this entry point checks.
 //
+// Flat walk. A warp runs a test as long as one of its lanes has one left.
+// Nested loops over the kept bins and their slots ran, for each kept bin,
+// the slots of the lane with the most there, summed over the bins. Here
+// each particle's tests are one flat run: a cursor (the kept bin's
+// direction bit, its first slot's address, the slot and the bin's count)
+// steps to the next kept bin when the bin's slots run out, through a table
+// of the 27 directions built once a slab (each direction's coordinate
+// offsets and the byte offsets of its bin's slots and count), so a step
+// costs two shared loads and no division; and a pass tests kSlots = 2 slots
+// of the bin at once, their loads and arithmetic independent, so a lane's
+// run of tests takes about half the passes, each little longer. A slot past
+// the bin's count is computed and dropped.
+// Ordering the list by each particle's count of tests (a counting sort
+// before the walk, so that a warp's lanes hold about as many tests each)
+// raised the share of busy lanes in a test pass from 30% to 84% on the
+// final lj3d_20m slab, and cut its test passes 2.85x, but took 0.40-0.63
+// ms a call in its count pass and two more barriers against 0.26 ms saved
+// in the walk (PERF.md): a block-slab waits for its slowest warp, which
+// holds the heaviest particle whatever the order, and sorted lanes lose
+// the broadcasts of lanes that share an own bin.
+//
 // Deferred pairs. The walk over the kept bins only tests r2 <= c2: a pair
 // that passes is queued as its (direction, compacted slot), 10 bits in a
 // 64-bit register, up to kQueue of them. When the walk ends, or stops at a
-// full queue (to resume after), the thread drains the queue oldest first:
-// it recomputes each pair's offsets and r2 with the walk's rounded ops (the
-// same bits), evaluates the coefficient and adds the force. Each particle
-// adds the same terms in the same order, so the outputs are bitwise those of
-// evaluating each hit where the walk meets it. The coefficient is a branch
+// queue without room for a pass's hits (to resume after), the thread drains
+// the queue oldest first: it recomputes each pair's offsets and r2 with the
+// walk's rounded ops (the same bits), evaluates the coefficient and adds the
+// force. Each particle adds the same terms in the same order, so the outputs
+// are bitwise those of evaluating each hit where the walk meets it. The coefficient is a branch
 // that a warp runs whenever one of its lanes needs it: evaluated in place, a
 // warp ran it at most kept bins that held a lane's own particle (each
 // particle meets itself) or a neighbour in range, with one or two lanes
 // busy; drained, it runs as many times as the lane with the most hits has
-// pairs. Given a counter pair, the kernel counts the pairs inside the cutoff
-// (self pairs included) and the warp passes of the coefficient: a register
-// each per thread, an atomic add each per warp at the end. It counts in an
-// instance of its own (COUNT), since counting costs time (~1% of an LJ call;
-// the repulsive counting instance, held to 2 blocks an SM below, ~12%); a
-// call without counters launches the one that does not count.
+// pairs. Given four counters, the kernel counts the pairs inside the cutoff
+// (self pairs included), the warp passes of the coefficient, the distance
+// tests and the warp passes of the test (kSlots a pass of the walk): a
+// register each per thread, an atomic add each per warp at the end. It counts in an instance of its own
+// (COUNT), since counting costs time; a call without counters launches the
+// one that does not count.
 //
 // Shards (the sharded engine, ops/cuda_grid3.py). A shard's planes are y
 // slabs y0 .. y0 + Y - 1 of the global slab; y0 enters the wall fold, and
@@ -121,6 +142,11 @@ constexpr uint32_t kDZM = 0x1249249u;
 // | compacted slot) in a 64-bit register. A particle of the stretch config's
 // late gas has ~1.6 (itself and a Poisson(0.6) count of neighbours).
 constexpr int kQueue = 6;
+
+// Slots of one neighbour bin a lane tests in a pass of its walk (bins hold
+// ~3.9 live slots in the stretch config's gas). Two beat three and four on
+// the card: within the 80 registers of 3 blocks an SM, more slots spilled.
+constexpr int kSlots = 2;
 
 struct Fields {
   const float* x;
@@ -170,17 +196,27 @@ __device__ __forceinline__ void note_passes(unsigned& passes, int nq) {
   if ((int)(threadIdx.x & 31) == __ffs(act) - 1) passes += most;
 }
 
+// Count a pass of the walk: this lane's distance tests in it, and the
+// kSlots test slots of each lane that the warp runs (added by the lowest
+// lane running the pass).
+__device__ __forceinline__ void note_tests(unsigned& tests, unsigned& passes,
+                                           int k) {
+  tests += k;
+  if ((int)(threadIdx.x & 31) == __ffs(__activemask()) - 1) passes += kSlots;
+}
+
 // Blocks an SM an instance is built for (__launch_bounds__). The ring's
 // shared memory leaves room for 3 blocks an SM up to capacity 11 at the
 // 4 x 16 tile (the 3D repulsive config) and for 2 above it (the stretch
 // config's 13), so the instances that step are held to the 80 registers
 // that 3 blocks allow; both laws' bodies fit in them without spilling. The
-// counting instances, launched only to measure, are held to 2: with its two
+// counting instances, launched only to measure, are held to 2: with its
 // counters the repulsive body would spill at 80.
 constexpr int min_blocks(bool count) { return count ? 2 : 3; }
 
 // SHARD: K3 with a y offset and ghost slabs. COUNT: K3 adding its pairs
-// inside the cutoff and its warp passes of the coefficient to counts.
+// inside the cutoff, its warp passes of the coefficient, its distance tests
+// and its warp passes of the test to counts.
 template <Law LAW, bool SHARD, bool COUNT>
 __global__ void __launch_bounds__(ppsim::kTileThreads, min_blocks(COUNT))
 grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp,
@@ -207,6 +243,8 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp,
   uint32_t* omask = reinterpret_cast<uint32_t*>(smem + lay.omask);
   float* face = reinterpret_cast<float*>(smem + lay.face);
   int* wsum = reinterpret_cast<int*>(smem + lay.wsum);
+  float4* dofs = reinterpret_cast<float4*>(smem + lay.dofs);
+  int* dcnt = reinterpret_cast<int*>(smem + lay.dcnt);
 
   // This thread's halo bin for copies and compaction: h = tid % HB, and
   // the copies of a bin's cap slots split over `parts` threads.
@@ -293,7 +331,9 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp,
 
   const float twoL = 2.0f * L;
   const float cutm = pp.cutoff * 1.000001f;
-  unsigned hits = 0, passes = 0;  // COUNT: this thread's pairs and passes
+  // COUNT: this thread's pairs in range, coefficient passes, distance tests
+  // and test passes
+  unsigned hits = 0, passes = 0, tests = 0, tpasses = 0;
   for (int y = ya; y < yb; ++y) {
     // slab y+2 streams in while slab y computes
     if (y + 1 < yb) issue(y + 2);
@@ -332,8 +372,21 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp,
 #pragma unroll
       for (int q = 0; q < 6; ++q) face[q * OB + tid] = f[q];
     }
+    // The slab's direction table: for neighbour direction d, the offsets
+    // of the walk's coordinates (dx * bsx, dy * bsy, dz * bsz: exactly
+    // -bs, 0 or bs) and the byte offsets, from an own bin's halo index h0,
+    // of the neighbour's first x (from smem + 4 * h0) and of its count
+    // (from smem + h0), in the buffer of slab y + dy.
+    if (tid < 27) {
+      const int dy = tid / 9 - 1, dx = tid / 3 % 3 - 1, dz = tid % 3 - 1;
+      const int b = (int)(buf(y + dy) - smem), cell = dx * HZ + dz;
+      dofs[tid] = make_float4((float)dx * g.bsx, (float)dy * g.bsy,
+                              (float)dz * g.bsz, __int_as_float(b + 4 * cell));
+      dcnt[tid] = b + lay.ncnt + cell;
+    }
     __syncthreads();
     const float* c0 = reinterpret_cast<const float*>(cur);
+    const int capHB = cap * HB;
 
     const float yo = __fmul_rn((float)((SHARD ? gh.y0 : 0) + y), g.bsy);
     for (int p = tid; p < total; p += blockDim.x) {
@@ -344,9 +397,6 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp,
       const float sx = c0[k * HB + h0];
       const float sy = c0[(cap + k) * HB + h0];
       const float sz = c0[(2 * cap + k) * HB + h0];
-      const int s = cur[lay.slot + k * OB + ob];
-      const int64_t i =
-          s * plane + ((int64_t)y * g.X + x0 + ox) * g.Z + z0 + oz;
       float ax = 0.0f, ay = 0.0f, az = 0.0f;
       // Cut the neighbour bins beyond a face whose nearest live coordinate
       // lies more than a cutoff away: the gap is computed with the pair
@@ -363,74 +413,83 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp,
       if (__fsub_rn(__fadd_rn(fc[4 * OB], -g.bsz), sz) < -cutm) m &= ~kDZM;
       if (__fsub_rn(__fadd_rn(fc[5 * OB], g.bsz), sz) > cutm)
         m &= ~(kDZM << 2);
-      // Walk the remaining bins in DIRS3 order (dy, dx, dz ascending),
-      // queueing the hits (newest in the low bits). A full queue stops the
-      // walk at bin bit d of m, slot j0; the drain empties it oldest first
-      // and the walk resumes there, so the pairs drain in the order met.
-      uint64_t q = 0;
-      int nq = 0, j0 = 0;
-      bool full = true;
-      while (full) {
-        full = false;
-        while (m) {
-          const int d = __ffs(m) - 1;
-          const int dy = d / 9 - 1, dx = d / 3 % 3 - 1, dz = d % 3 - 1;
-          const unsigned char* nb = buf(y + dy);
-          const float offy = (float)dy * g.bsy;  // exactly -bsy, 0 or bsy
-          const float offx = (float)dx * g.bsx;
-          const float offz = (float)dz * g.bsz;
-          const int hn = h0 + dx * HZ + dz;
-          const int n = nb[lay.ncnt + hn];
-          const float* px = reinterpret_cast<const float*>(nb) + hn;
-          const float* py = px + cap * HB;
-          const float* pz = py + cap * HB;
-          int j = j0;
-          for (; j < n; ++j) {
-            const float xno = __fadd_rn(px[j * HB], offx);
-            const float yno = __fadd_rn(py[j * HB], offy);
-            const float zno = __fadd_rn(pz[j * HB], offz);
-            const float ddx = __fsub_rn(xno, sx);
-            const float ddy = __fsub_rn(yno, sy);
-            const float ddz = __fsub_rn(zno, sz);
-            if (r2_of(ddx, ddy, ddz) <= pp.c2) {
-              q = q << 10 | (uint64_t)(d << 5 | j);
-              if (++nq == kQueue) {
-                full = true;
-                break;
-              }
+      // One flat run of tests over the remaining bins in DIRS3 order (dy,
+      // dx, dz ascending), each bin's slots ascending, kSlots slots a pass:
+      // a cursor (bin bit d, its first x px, slot j of its n) steps to the
+      // next kept bin when the slots run out; a pass reads the bin's
+      // offsets from the table again rather than hold them in registers.
+      // Hits are queued (newest in the low bits); a queue without room for
+      // a pass's hits stops the walk at the cursor, the drain empties it
+      // oldest first and the walk resumes there, so the pairs drain in the
+      // order met.
+      const unsigned char* cb = smem + 4 * h0;
+      const unsigned char* nbs = smem + h0;
+      const float* px = c0;
+      int d = 0, j = 0, n = 0;
+      bool more = true;
+      while (more) {
+        uint64_t q = 0;
+        int nq = 0;
+        for (;;) {
+          if (j == n) {  // every kept bin holds a live slot
+            if (!m) {
+              more = false;
+              break;
+            }
+            d = __ffs(m) - 1;
+            m &= m - 1;
+            const float4 o = dofs[d];
+            px = reinterpret_cast<const float*>(cb + __float_as_int(o.w));
+            n = nbs[dcnt[d]];
+            j = 0;
+          }
+          // slots j .. j + kSlots - 1, those past the bin's count computed
+          // and dropped (their loads stay inside the buffer: its bounds
+          // follow the coordinates)
+          const float* pj = px + j * HB;
+          const float4 od = dofs[d];
+          const float offx = od.x, offy = od.y, offz = od.z;
+          const int left = min(n - j, kSlots);
+          float r2[kSlots];
+#pragma unroll
+          for (int u = 0; u < kSlots; ++u)
+            r2[u] = r2_of(__fsub_rn(__fadd_rn(pj[u * HB], offx), sx),
+                          __fsub_rn(__fadd_rn(pj[capHB + u * HB], offy), sy),
+                          __fsub_rn(__fadd_rn(pj[2 * capHB + u * HB], offz), sz));
+          if constexpr (COUNT) note_tests(tests, tpasses, left);
+#pragma unroll
+          for (int u = 0; u < kSlots; ++u) {
+            if (u < left && r2[u] <= pp.c2) {
+              q = q << 10 | (uint64_t)(d << 5 | (j + u));
+              ++nq;
             }
           }
-          if (full) {
-            j0 = j + 1;
-            break;
-          }
-          m &= m - 1;
-          j0 = 0;
+          j += left;
+          if (nq > kQueue - kSlots) break;
         }
         // the drain: each queued pair's offsets and r2 recomputed with the
         // walk's own rounded ops, then its coefficient and force
         if constexpr (COUNT) note_passes(passes, nq);
         for (int e = nq - 1; e >= 0; --e) {
           const int r = (int)(q >> (10 * e)) & 1023;
-          const int d = r >> 5, j = r & 31;
-          const int dy = d / 9 - 1, dx = d / 3 % 3 - 1, dz = d % 3 - 1;
-          const float* px = reinterpret_cast<const float*>(buf(y + dy)) + h0 +
-                            dx * HZ + dz + j * HB;
-          const float ddx = __fsub_rn(__fadd_rn(px[0], (float)dx * g.bsx), sx);
-          const float ddy =
-              __fsub_rn(__fadd_rn(px[cap * HB], (float)dy * g.bsy), sy);
-          const float ddz =
-              __fsub_rn(__fadd_rn(px[2 * cap * HB], (float)dz * g.bsz), sz);
+          const float4 o = dofs[r >> 5];
+          const float* pj = reinterpret_cast<const float*>(
+                                cb + __float_as_int(o.w)) + (r & 31) * HB;
+          const float ddx = __fsub_rn(__fadd_rn(pj[0], o.x), sx);
+          const float ddy = __fsub_rn(__fadd_rn(pj[capHB], o.y), sy);
+          const float ddz = __fsub_rn(__fadd_rn(pj[2 * capHB], o.z), sz);
           const float coef = ppsim::pair_coef<LAW>(r2_of(ddx, ddy, ddz), pp);
           ax = __fadd_rn(ax, __fmul_rn(coef, ddx));
           ay = __fadd_rn(ay, __fmul_rn(coef, ddy));
           az = __fadd_rn(az, __fmul_rn(coef, ddz));
         }
         if constexpr (COUNT) hits += nq;
-        q = 0;
-        nq = 0;
       }
-      // Verlet + wall fold (grid3d_ops.move3_planes) of a live slot
+      // Verlet + wall fold (grid3d_ops.move3_planes) of a live slot, whose
+      // index is taken here so that no register holds it through the walk
+      const int s = cur[lay.slot + k * OB + ob];
+      const int64_t i =
+          s * plane + ((int64_t)y * g.X + x0 + ox) * g.Z + z0 + oz;
       float vx = __fadd_rn(in.vx[i], __fmul_rn(ax, dt));
       float vy = __fadd_rn(in.vy[i], __fmul_rn(ay, dt));
       float vz = __fadd_rn(in.vz[i], __fmul_rn(az, dt));
@@ -461,11 +520,11 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp,
     __syncthreads();
   }
   if constexpr (COUNT) {
-    const unsigned wh = __reduce_add_sync(0xffffffffu, hits);
-    const unsigned wp = __reduce_add_sync(0xffffffffu, passes);
-    if ((tid & 31) == 0) {
-      atomicAdd(counts, (unsigned long long)wh);
-      atomicAdd(counts + 1, (unsigned long long)wp);
+    const unsigned c[4] = {hits, passes, tests, tpasses};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned w = __reduce_add_sync(0xffffffffu, c[q]);
+      if ((tid & 31) == 0) atomicAdd(counts + q, (unsigned long long)w);
     }
   }
 }
@@ -496,9 +555,9 @@ int launch(const Fields& in, const Outs& out, float* sp,
 extern "C" {
 
 // Inputs x, y, z, vx, vy, vz; outputs likewise; sp the (Y, X, Z) speed
-// plane; counts null, or two int64 counters to which the launch adds its
-// pairs inside the cutoff (self pairs included) and its warp passes of the
-// pair coefficient. law 0 = repulsive, 1 = Lennard-Jones. A shard passes the
+// plane; counts null, or four int64 counters to which the launch adds its
+// pairs inside the cutoff (self pairs included), its warp passes of the
+// pair coefficient, its distance tests and its warp passes of the test. law 0 = repulsive, 1 = Lennard-Jones. A shard passes the
 // global index y0 of its slab 0 and its ghost slabs (gtx, gty, gtz: slab -1;
 // gbx, gby, gbz: slab Y; each [cap][X][Z]); null ghosts count as empty slabs,
 // and the three of one side come together or not at all. The launch plan (tile tx x

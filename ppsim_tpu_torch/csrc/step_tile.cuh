@@ -12,9 +12,10 @@
 // own bin, and each compacted own slot's original slot index. After the four
 // buffers come the row's particle list (own bin << 5 | compacted slot,
 // uint16), and per own bin the max |v|^2, the mask of non-empty neighbour
-// bins and the bound of the live coordinates beyond each face; last the
-// scan's warp sums. ppsim_tpu_torch/ops/cuda_grid.py tile_smem repeats this
-// layout to plan the launch; the entry points check that both agree.
+// bins and the bound of the live coordinates beyond each face; then the
+// scan's warp sums, and in 3D (nc == 3) last the slab's table of the 27
+// neighbour directions. ppsim_tpu_torch/ops/cuda_grid.py tile_smem repeats
+// this layout to plan the launch; the entry points check that both agree.
 
 #pragma once
 
@@ -43,6 +44,8 @@ struct TileLayout {
   int omask;  // offset of the per-own-bin neighbour masks, uint32[ob]
   int face;   // offset of the per-own-bin face bounds, float[2 * NC][ob]
   int wsum;   // offset of the scan's warp sums, int[32]
+  int dofs;   // 3D: offset of the directions' offsets, float4[27]
+  int dcnt;   // 3D: offset of the directions' count offsets, int[27]
   int bytes;  // dynamic shared memory of the block
 };
 
@@ -61,7 +64,9 @@ __host__ __device__ inline TileLayout tile_layout(int nc, int cap, int hb,
   t.omask = t.spmax + align16(4 * ob);
   t.face = t.omask + align16(4 * ob);
   t.wsum = t.face + align16(2 * nc * 4 * ob);
-  t.bytes = t.wsum + 4 * 32;
+  t.dofs = t.wsum + 4 * 32;
+  t.dcnt = t.dofs + (nc == 3 ? 16 * 27 : 0);
+  t.bytes = t.dcnt + (nc == 3 ? align16(4 * 27) : 0);
   return t;
 }
 

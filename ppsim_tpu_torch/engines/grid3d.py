@@ -19,10 +19,12 @@ at that packing capacity and then repack the slab down to the run capacity
 the repulsive law, off for LJ, whose run outgrows its packing.
 
 Inside ``profiling.tracing()`` K3 (or, on the CPU, its plain twin) counts
-the pairs inside the cutoff of every step and K3's warp passes of the pair
-coefficient into ``pair_counts`` (``ops/cuda_grid3.py``), which the engine
-folds into ``counters.pair_hits`` and ``counters.coef_warp_passes`` once a
-run. Outside it nothing counts: K3's counting instance is slower.
+the pairs inside the cutoff of every step, and K3 its warp passes of the
+pair coefficient, its distance tests and its warp passes of the test, into
+``pair_counts`` (``ops/cuda_grid3.py``), which the engine folds into
+``counters.pair_hits``, ``coef_warp_passes``, ``pair_tests`` and
+``test_warp_passes`` once a run. Outside it nothing counts: K3's counting
+instance is slower.
 """
 
 from __future__ import annotations
@@ -84,8 +86,8 @@ class Grid3DEngine(GridEngine):
             raise ValueError("the port implements grid_pack_mode='sort' only")
         self.geom = Geometry3S.for_config(config)
         self._pack_capacity = None  # known after the first init_carry
-        # (pairs inside the cutoff, K3's coefficient passes) over the
-        # engine's life; read once a run
+        # (pairs inside the cutoff, K3's coefficient passes, distance tests,
+        # test passes) over the engine's life; read once a run
         self.pair_counts = new_counts(self.device)
         self._pack_spill = False
         self._escalated_floor = 0  # the capacity a drop escalated to
@@ -118,7 +120,8 @@ class Grid3DEngine(GridEngine):
 
     def read_device_counters(self) -> None:
         c = self.counters
-        c.pair_hits, c.coef_warp_passes = self.pair_counts.tolist()
+        (c.pair_hits, c.coef_warp_passes, c.pair_tests,
+         c.test_warp_passes) = self.pair_counts.tolist()
 
     def step_counts(self):
         """``pair_counts`` for K3's wrapper inside ``profiling.tracing()``,

@@ -98,11 +98,13 @@ def tile_smem(ncoords: int, cap: int, halo_bins: int, own_bins: int) -> int:
     (``csrc/step_tile.cuh`` tile_layout): four buffers of ``ncoords``
     coordinate planes over the halo bins plus their bounds, counts and the
     own slot map, then the particle list, the per-own-bin speed maxima,
-    neighbour masks and face bounds, and the scan's warp sums."""
+    neighbour masks and face bounds, and the scan's warp sums; in 3D also
+    the table of the 27 neighbour directions."""
     buf = (_align16(ncoords * cap * halo_bins * 4) + _align16(2 * ncoords * halo_bins * 4)
            + _align16(halo_bins) + _align16(own_bins) + _align16(cap * own_bins))
+    dirs = 16 * 27 + _align16(4 * 27) if ncoords == 3 else 0
     return (_RING * buf + _align16(2 * cap * own_bins) + 2 * _align16(4 * own_bins)
-            + _align16(2 * ncoords * 4 * own_bins) + 4 * 32)
+            + _align16(2 * ncoords * 4 * own_bins) + 4 * 32 + dirs)
 
 
 def segment(extent: int, tiles: int) -> int:

@@ -18,14 +18,16 @@ float32 (the JAX package's layout), which take the place of the empty slabs
 above and below the planes. K3 is owner-computes, so a ghost slab is only
 read.
 
-Both count into ``counts``, when given: an int64 tensor of two on the planes'
-device. Its first element gains the step's pairs inside the cutoff (each
-live own particle with every live slot within the cutoff in its 27 bins,
-itself included), its second the kernel's warp passes of the pair
-coefficient, which the plain twin leaves as it is. K3 tests every pair it
-does not cut, and cuts only pairs outside the cutoff, so both count the
+Both count into ``counts``, when given: an int64 tensor of four on the
+planes' device. Its first element gains the step's pairs inside the cutoff
+(each live own particle with every live slot within the cutoff in its 27
+bins, itself included); the kernel also adds its warp passes of the pair
+coefficient, its distance tests and its warp passes of the test (each pass
+of its walk runs several test slots a lane, each counted) to the other
+three, which the plain twin leaves as they are. K3 tests every pair
+it does not cut, and cuts only pairs outside the cutoff, so both count the
 same pairs. With ``counts`` K3 launches its counting instance, which is
-slower than the one without (~1% with LJ, ~12% with the repulsive law).
+slower than the one without.
 """
 
 from __future__ import annotations
@@ -73,8 +75,9 @@ def step3_plan(shape) -> TilePlan:
 
 def new_counts(device) -> torch.Tensor:
     """Zeroed counters for ``counts``: (pairs inside the cutoff, warp
-    passes of the pair coefficient)."""
-    return torch.zeros(2, dtype=torch.int64, device=device)
+    passes of the pair coefficient, distance tests, warp passes of the
+    test)."""
+    return torch.zeros(4, dtype=torch.int64, device=device)
 
 
 def grid3_step_plain(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
@@ -122,8 +125,8 @@ def grid3_step_cuda(xl, yl, zl, vx, vy, vz, geom: Geometry3S, cutoff, min_r,
     if ghosts is not None:
         check_ghosts(ghosts, [(cap, 1, X, Z)] * 6, xl.device)
     if counts is not None and (counts.device != xl.device or counts.dtype != torch.int64
-                               or counts.shape != (2,) or not counts.is_contiguous()):
-        raise ValueError("counts must be a contiguous int64 tensor of 2 on the "
+                               or counts.shape != (4,) or not counts.is_contiguous()):
+        raise ValueError("counts must be a contiguous int64 tensor of 4 on the "
                          f"planes' device, got {counts.dtype} {tuple(counts.shape)} "
                          f"on {counts.device}")
     if cap > MAX_CAP:

@@ -110,11 +110,14 @@ class Counters:
     frame_wait_s: float = 0.0  # host blocked on a frame's copy event
     frame_host_copy_s: float = 0.0  # host copying frames into the host array
     # The 3D step's pairs inside the cutoff (self pairs included) and, on
-    # the card, K3's warp passes of the pair coefficient, counted by K3 or
-    # its twin (cuda3d, sharded_grid3d) in steps run inside tracing():
-    # totals of the engine's device-side counters, read once a run.
+    # the card, K3's warp passes of the pair coefficient, its distance tests
+    # and its warp passes of the test, counted by K3 or its twin (cuda3d,
+    # sharded_grid3d) in steps run inside tracing(): totals of the engine's
+    # device-side counters, read once a run.
     pair_hits: int = 0
     coef_warp_passes: int = 0
+    pair_tests: int = 0
+    test_warp_passes: int = 0
 
     def note_rerun(self, steps_before: int) -> None:
         """A re-run follows: the steps run since ``steps_before`` (a value

@@ -14,6 +14,7 @@ from ppsim_tpu.engines import get_engine as jget_engine
 from ppsim_tpu.engines.grid3d import Grid3DEngine as JGrid3DEngine
 from ppsim_tpu.initlib import init_particles as jinit_particles
 
+from ppsim_tpu_torch import profiling
 from ppsim_tpu_torch.config import SimConfig
 from ppsim_tpu_torch.convert import config_from_dict, particle_state_from_numpy
 from ppsim_tpu_torch.engines import base as base_mod
@@ -21,6 +22,7 @@ from ppsim_tpu_torch.engines import get_engine
 from ppsim_tpu_torch.engines.base import Monitors, RunResult
 from ppsim_tpu_torch.engines.grid3d import Grid3DEngine
 from ppsim_tpu_torch.harness import main
+from ppsim_tpu_torch.initlib import init_particles
 from ppsim_tpu_torch.io import read_trajectory, write_trajectory
 from ppsim_tpu_torch.state import make_state
 
@@ -219,3 +221,23 @@ def test_trajectory3_round_trip(tmp_path):
     back, size = read_trajectory(path)
     assert back.shape == (3, 20, 3) and size == 0.15
     np.testing.assert_allclose(back, frames, rtol=1e-5)
+
+
+def test_engine_folds_the_four_step_counters():
+    """``read_device_counters`` folds K3's four counters (pairs in range,
+    coefficient passes, distance tests, test passes) into ``Counters``; on
+    the CPU a traced run counts the pairs only (the twin has no warps), so
+    the tests and both warp counters stay 0."""
+    cfg = SimConfig(num_parts=400, **BASE3, **LJ)
+    eng = get_engine("cuda3d", cfg, device="cpu")
+    eng.pair_counts += torch.tensor([5, 2, 70, 3])
+    eng.read_device_counters()
+    record = eng.counters.record()
+    assert [record[k] for k in ("pair_hits", "coef_warp_passes", "pair_tests",
+                                "test_warp_passes")] == [5, 2, 70, 3]
+    eng.pair_counts.zero_()
+    with profiling.tracing():
+        eng.run(init_particles(cfg, seed=3, method="fast"), nsteps=2)
+    c = eng.counters
+    assert c.pair_hits >= 2 * 400
+    assert (c.coef_warp_passes, c.pair_tests, c.test_warp_passes) == (0, 0, 0)

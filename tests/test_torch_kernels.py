@@ -419,8 +419,10 @@ def test_step3_kernel_matches_plain_on_card(cuda, cfg, law):
 def test_step3_kernel_counts_the_twins_pairs_on_card(cuda, kind, law):
     """K3 counts the pairs inside the cutoff that its twin counts (its
     face cuts drop only pairs outside it), in at least a 32nd as many warp
-    passes of the coefficient; counting changes no output. The lattice is
-    the packed n = 262,144 init slab, where the cuts drop most bins."""
+    passes of the coefficient, and at least as many distance tests, in at
+    least a 32nd as many warp passes of the test; counting changes no
+    output. The lattice is the packed n = 262,144 init slab, where the cuts
+    drop most bins."""
     cfg = (GAS3 if kind == "gas" else PAD3).with_(**(LJ if law == "lj" else {}))
     if kind == "gas":
         geom, slab, _ = gas_slab3(cfg, 5, device=cuda)
@@ -430,15 +432,45 @@ def test_step3_kernel_counts_the_twins_pairs_on_card(cuda, kind, law):
     counts, twin = new_counts(cuda), new_counts(cuda)
     got = grid3_step_cuda(*slab[:6], *args, counts=counts)
     want = grid3_step_plain(*slab[:6], *args, counts=twin)
-    hits, passes = counts.tolist()
+    hits, passes, tests, test_passes = counts.tolist()
     live = int((slab.pid >= 0).sum())
-    assert hits == int(twin[0]) and int(twin[1]) == 0
+    assert hits == int(twin[0]) and twin[1:].tolist() == [0, 0, 0]
     assert hits > 1.3 * live if kind == "gas" else hits == live
     assert 0 < passes and 32 * passes >= hits
+    assert tests >= hits and 0 < test_passes and 32 * test_passes >= tests
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
     for g, w in zip(got, grid3_step_cuda(*slab[:6], *args)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gas", "lattice"])
+def test_step3_flat_walk_matches_plain_on_card(cuda, kind):
+    """K3's flat walk, several slots a pass, on blocks of a few hundred
+    particles (n = 262,144, LJ): a uniform gas, whose Poisson bin counts give
+    the lanes of a warp uneven runs of tests (and some block-slabs more
+    particles than threads), and the packed lattice, whose counts are even.
+    Both instances match the twin, and each other bitwise; every test fills
+    one of the slots the warp's passes run."""
+    cfg = PAD3.with_(**LJ)
+    if kind == "gas":
+        geom, slab, _ = gas_slab3(cfg, 7, device=cuda)
+    else:
+        geom, slab = _drifted_slab3(cfg, 0.0, 0, device=cuda)
+    args = _step3_args(cfg, geom)
+    counts = new_counts(cuda)
+    got = grid3_step_cuda(*slab[:6], *args, counts=counts)
+    want = grid3_step_plain(*slab[:6], *args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    for g, w in zip(got, grid3_step_cuda(*slab[:6], *args)):
+        assert torch.equal(g, w)
+    hits, _, tests, test_slots = counts.tolist()
+    assert tests >= hits >= int((slab.pid >= 0).sum())
+    assert 0 < tests <= 32 * test_slots
+    if kind == "gas":
+        assert tests > 4 * hits
 
 
 @pytest.mark.cuda

@@ -7,8 +7,9 @@ twin, ``Counters.pair_hits`` and ``coef_warp_passes``) on the CPU:
   with ghost slabs;
 - the engines that run K3's wrapper (``cuda3d``, ``sharded_grid3d``) fill
   ``Counters.record()["pair_hits"]`` once a run, counting the steps run
-  inside ``profiling.tracing()`` and no others; ``coef_warp_passes``, which
-  only K3 counts, stays 0 off the card.
+  inside ``profiling.tracing()`` and no others; ``coef_warp_passes``,
+  ``pair_tests`` and ``test_warp_passes``, which only K3 counts, stay 0 off
+  the card.
 
 The card's side (K3's counts equal to the twin's) is in
 tests/test_torch_kernels.py and tests/test_torch_sharded_kernels.py.
@@ -70,7 +71,7 @@ def test_plain_twin_counts_the_pairs_inside_the_cutoff(law, seed):
     assert want > 1.3 * cfg.num_parts  # neighbours in range, not only self pairs
     counts = new_counts("cpu")
     out = grid3_step_plain(*slab[:6], *_step_args(cfg, geom), counts=counts)
-    assert counts.tolist() == [want, 0]
+    assert counts.tolist() == [want, 0, 0, 0]
     # counting changes nothing the step returns, and the wrapper counts alike
     for a, b in zip(out, grid3_step_plain(*slab[:6], *_step_args(cfg, geom))):
         assert torch.equal(a, b)

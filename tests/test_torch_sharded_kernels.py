@@ -296,7 +296,7 @@ def test_shard3_entry_points_refuse_half_the_ghosts(cuda):
     sp = torch.full((Y, X, Z), 7.0, device=cuda)
     err = lib.ppsim_grid3_step(
         *(t.data_ptr() for t in s[:6]), ghost.data_ptr(), *(0,) * 5,
-        *(t.data_ptr() for t in out[:6]), sp.data_ptr(), cuda.index, cap, Y, X, Z, 0,
+        *(t.data_ptr() for t in out[:6]), sp.data_ptr(), 0, cuda.index, cap, Y, X, Z, 0,
         geom.xs, geom.zs, *pair_args("repulsive", CFG3.cutoff, CFG3.min_r, CFG3.mass, ())[:1],
         *plan.tile, plan.seg, plan.threads, plan.blocks, plan.smem, f32(geom.bsx),
         f32(geom.bsy), f32(geom.bsz),
