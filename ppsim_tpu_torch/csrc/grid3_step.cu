@@ -86,17 +86,18 @@
 // the queue oldest first: it recomputes each pair's offsets and r2 with the
 // walk's rounded ops (the same bits), evaluates the coefficient and adds the
 // force. Each particle adds the same terms in the same order, so the outputs
-// are bitwise those of evaluating each hit where the walk meets it. The coefficient is a branch
-// that a warp runs whenever one of its lanes needs it: evaluated in place, a
-// warp ran it at most kept bins that held a lane's own particle (each
-// particle meets itself) or a neighbour in range, with one or two lanes
-// busy; drained, it runs as many times as the lane with the most hits has
-// pairs. Given four counters, the kernel counts the pairs inside the cutoff
-// (self pairs included), the warp passes of the coefficient, the distance
-// tests and the warp passes of the test (kSlots a pass of the walk): a
-// register each per thread, an atomic add each per warp at the end. It counts in an instance of its own
-// (COUNT), since counting costs time; a call without counters launches the
-// one that does not count.
+// are bitwise those of evaluating each hit where the walk meets it. The
+// coefficient is a branch that a warp runs whenever one of its lanes needs
+// it: evaluated in place, a warp ran it at most kept bins that held a lane's
+// own particle (each particle meets itself) or a neighbour in range, with
+// one or two lanes busy; drained, it runs as many times as the lane with the
+// most hits has pairs. Given four counters, the kernel counts the pairs
+// inside the cutoff (self pairs included), the warp passes of the
+// coefficient, the distance tests and the warp passes of the test (kSlots a
+// pass of the walk): a register each per thread, an atomic add each per warp
+// at the end. It counts in an instance of its own (COUNT), since counting
+// costs time; a call without counters launches the one that does not
+// count.
 //
 // Shards (the sharded engine, ops/cuda_grid3.py). A shard's planes are y
 // slabs y0 .. y0 + Y - 1 of the global slab; y0 enters the wall fold, and
@@ -455,7 +456,8 @@ grid3_step_kernel(Fields in, Outs out, float* __restrict__ sp,
           for (int u = 0; u < kSlots; ++u)
             r2[u] = r2_of(__fsub_rn(__fadd_rn(pj[u * HB], offx), sx),
                           __fsub_rn(__fadd_rn(pj[capHB + u * HB], offy), sy),
-                          __fsub_rn(__fadd_rn(pj[2 * capHB + u * HB], offz), sz));
+                          __fsub_rn(__fadd_rn(pj[2 * capHB + u * HB], offz),
+                                    sz));
           if constexpr (COUNT) note_tests(tests, tpasses, left);
 #pragma unroll
           for (int u = 0; u < kSlots; ++u) {
@@ -557,7 +559,8 @@ extern "C" {
 // Inputs x, y, z, vx, vy, vz; outputs likewise; sp the (Y, X, Z) speed
 // plane; counts null, or four int64 counters to which the launch adds its
 // pairs inside the cutoff (self pairs included), its warp passes of the
-// pair coefficient, its distance tests and its warp passes of the test. law 0 = repulsive, 1 = Lennard-Jones. A shard passes the
+// pair coefficient, its distance tests and its warp passes of the test.
+// law 0 = repulsive, 1 = Lennard-Jones. A shard passes the
 // global index y0 of its slab 0 and its ghost slabs (gtx, gty, gtz: slab -1;
 // gbx, gby, gbz: slab Y; each [cap][X][Z]); null ghosts count as empty slabs,
 // and the three of one side come together or not at all. The launch plan (tile tx x
