@@ -212,7 +212,9 @@ __device__ __forceinline__ void note_tests(unsigned& tests, unsigned& passes,
 // config's 13), so the instances that step are held to the 80 registers
 // that 3 blocks allow; both laws' bodies fit in them without spilling. The
 // counting instances, launched only to measure, are held to 2: with its
-// counters the repulsive body would spill at 80.
+// counters the repulsive body would spill at 80. ptxas -v (sm_90a, CUDA
+// 12.8): stepping instances LJ 79, LJ shard 80, repulsive 80 and 80
+// registers, no spill; counting instances 94 (LJ) and 105 (repulsive).
 constexpr int min_blocks(bool count) { return count ? 2 : 3; }
 
 // SHARD: K3 with a y offset and ghost slabs. COUNT: K3 adding its pairs
